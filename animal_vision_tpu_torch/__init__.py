@@ -1,0 +1,12 @@
+"""animal-vision on PyTorch and CUDA (NVIDIA Hopper).
+
+The second package beside ``animal_vision_tpu``: the same species behind the
+same ``Animal.visualize(frame) -> (baseline, transformed)`` contract, with
+every kernel of the JAX package's Pallas code written by hand for sm_90a.
+This package imports neither JAX nor ``animal_vision_tpu``.
+
+Covered so far: the 20 non-UV species (``species``), whose uint8 path runs
+the three kernels in ``csrc/fused_nonuv.cu``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,500 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives ``animal_vision_tpu_torch`` on the card in phases, each of which
+raises on failure:
+
+1. device: card name, count, power limit; TF32 off for matrix products and
+   convolutions (the cat's warp and zoom are full float32);
+2. build: compiles every ``csrc/*.cu`` kernel library (one nvcc per source,
+   all at once) and prints ptxas' register and shared-memory report;
+3. kernels: every kernel of the main path against its plain PyTorch version
+   on the card at 1080x1920 and 721x1283 (two random frames plus a frame of
+   0/1 values, so both branches of the per-frame scale run), <= 1 LSB; then
+   each kernel's time (CUDA events), its plain version's time and its bound;
+4. main path: ``get_animal(name).visualize(frame)`` and
+   ``visualize_batch_device`` (4 frames already on the card) at 1080p for
+   the 20 non-UV species, with the launch counters read around that run;
+   each species against its plain composition on the card (<= 1 LSB) and
+   against the CPU path on a small frame (<= 1 LSB); then fps per species
+   and the 20-species harmonic mean;
+5. profile: ``torch.profiler`` device time by name beside the host-clock
+   time for one species per kernel (and the cat) through each entry point;
+6. summary: one JSON line with each kernel, then, as the last line,
+   ``{"ok": true, "device": {...}}``.
+
+Exits non-zero, printing no result, without a CUDA device. A detailed
+report goes to ``chiprun_out/chip_smoke_report.json``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SEED = 20261016
+SHAPES = ((1080, 1920), (721, 1283))
+MAIN_HW = (1080, 1920)
+BATCH = 4
+SMALL_HW = (64, 96)
+TOL_LSB = 1
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+KERNEL_REPS = 100
+PLAIN_REPS = 5
+MAIN_REPS = 100
+PROFILE_SPECIES = ("dog", "deer", "rat", "cat")  # one per kernel, and the cat's products
+PROFILE_REPS = 5
+SOURCE = "animal_vision_tpu_torch/csrc/fused_nonuv.cu"
+REPLACES = {
+    "iso_u8": "animal_vision_tpu/ops/fused_nonuv.py:199",
+    "streak_u8": "animal_vision_tpu/ops/fused_nonuv.py:335",
+    "pointwise_u8": "animal_vision_tpu/ops/fused_nonuv.py:530",
+}
+REPORT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_report.json"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, device: torch.device, warmup: int = 2) -> float:
+    """Mean milliseconds per call of ``fn`` over ``reps`` calls after
+    ``warmup``; CUDA events on the card."""
+    for _ in range(warmup):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def max_lsb(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.to(torch.int16) - b.to(torch.int16)).abs().max().item())
+
+
+@contextlib.contextmanager
+def plain_forbidden_on_cuda():
+    """Make every plain kernel version raise if a CUDA tensor reaches it."""
+    from animal_vision_tpu_torch.ops import fused_nonuv as F
+
+    names = ("iso_u8_plain", "streak_u8_plain", "pointwise_u8_plain")
+    saved = {n: getattr(F, n) for n in names}
+
+    def guard(name, fn):
+        def wrapped(img, *args, **kwargs):
+            if img.is_cuda:
+                raise AssertionError(f"{name} reached with a CUDA tensor")
+            return fn(img, *args, **kwargs)
+        return wrapped
+
+    for n in names:
+        setattr(F, n, guard(n, saved[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(F, n, saved[n])
+
+
+# ---------------------------------------------------------------------------
+# Phases 1 and 2
+# ---------------------------------------------------------------------------
+
+
+def device_phase() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = {
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+        "card": card_line(),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+    }
+    log(f"[device] {info['kind']} x{info['count']}; nvidia-smi: {info['card']}")
+    log(f"[device] torch {info['torch']} cuda {info['cuda']}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return info
+
+
+def build_phase() -> dict:
+    from animal_vision_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    seconds = time.perf_counter() - t0
+    log(f"[build] {sorted(reports)} in {seconds:.2f} s")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "ptxas info" in line and ("Compiling entry" in line or "Used" in line) or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    return {"seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def kernel_cases(h: int, w: int, device: torch.device, rng) -> list[dict]:
+    """The main path's kernel calls at (h, w): 2 random frames + 1 frame of
+    0/1 values per case, with the bytes and operations each call needs."""
+    from animal_vision_tpu_torch.core import color
+    from animal_vision_tpu_torch.ops import fused_nonuv as F
+    from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS, Cat
+
+    def frames():
+        x = np.concatenate([
+            rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8),
+            rng.integers(0, 2, (1, h, w, 3), dtype=np.uint8),
+        ])
+        return torch.from_numpy(x).to(device)
+
+    def table(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    n = 3
+    px = n * h * w
+    io_bytes = px * 3 * 2
+    cases = []
+
+    def iso(name, mat, sigma, as_float):
+        params = table(F.iso_params(mat, sigma))
+        ksize = params.numel() - 9
+        if as_float:
+            ins = [(frames().to(torch.float32) / 255.0).contiguous() for _ in range(3)]
+            scale = torch.ones(n, dtype=torch.float32, device=device)
+            scales = [scale] * 3
+        else:
+            ins = [frames() for _ in range(3)]
+            scales = [F.scale_of(x) for x in ins]
+        cases.append(dict(
+            name=name, kernel="iso_u8", ins=ins, scales=scales,
+            run=lambda x, s: F.iso_u8(x, s, params), plain=lambda x, s: F.iso_u8_plain(x, s, params),
+            bytes=px * 3 * (ins[0].element_size() + 1) + params.numel() * 4,
+            ops=px * (18 + 12 * ksize + 6),
+        ))
+
+    def streak(name, chroma):
+        spec = NONUV_SPECS[name]
+        tab_np, mix_np, r = F.streak_tables(h, spec.effects[0].params, spec.alpha, spec.s_scale)
+        tab, mix = table(tab_np), table(mix_np)
+        radii = (tab_np != 0).sum(axis=1) - 1  # each row's own half width
+        row_ops = 3 * (1 + 3 * radii) + 18 + (9 if chroma else 0) + 6
+        ins = [frames() for _ in range(3)]
+        cases.append(dict(
+            name=f"{name} r={r}" + (f" chroma={chroma}" if chroma else ""), kernel="streak_u8",
+            ins=ins, scales=[F.scale_of(x) for x in ins],
+            run=lambda x, s: F.streak_u8(x, s, tab, mix, chroma),
+            plain=lambda x, s: F.streak_u8_plain(x, s, tab, mix, chroma),
+            bytes=io_bytes + (tab.numel() + mix.numel()) * 4,
+            ops=int(n * w * row_ops.sum()),
+        ))
+
+    def pointwise(name, scone):
+        spec = NONUV_SPECS[name]
+        mat9 = table(color.collapse_lms_matrix(spec.alpha, spec.s_scale).reshape(9))
+        gain = table(F.scone_gain(h, scone)) if scone else None
+        ins = [frames() for _ in range(3)]
+        cases.append(dict(
+            name=name + (" gain" if scone else ""), kernel="pointwise_u8",
+            ins=ins, scales=[F.scale_of(x) for x in ins],
+            run=lambda x, s: F.pointwise_u8(x, s, mat9, gain),
+            plain=lambda x, s: F.pointwise_u8_plain(x, s, mat9, gain),
+            bytes=io_bytes + 36 + (h * 4 if scone else 0),
+            ops=px * (18 + (1 if scone else 0) + 6),
+        ))
+
+    for name in ("dog", "lion"):
+        spec = NONUV_SPECS[name]
+        iso(name, color.collapse_lms_matrix(spec.alpha, spec.s_scale), spec.effects[0].params[0], False)
+    iso("cat f32", Cat._merge_matrix().astype(np.float32), Cat.BLUR_SIGMA, True)
+    streak("deer", None)
+    streak("rabbit", NONUV_SPECS["rabbit"].effects[1].params[0])
+    pointwise("pig", None)
+    pointwise("rat", NONUV_SPECS["rat"].effects[0].params)
+    return cases
+
+
+def kernels_phase(device: torch.device, shapes=SHAPES, kernel_reps=KERNEL_REPS,
+                  plain_reps=PLAIN_REPS) -> list[dict]:
+    from animal_vision_tpu_torch.ops import fused_nonuv as F
+
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for h, w in shapes:
+        for case in kernel_cases(h, w, device, rng):
+            errs = [max_lsb(case["run"](x, s), case["plain"](x, s)) for x, s in zip(case["ins"], case["scales"])]
+            sync(device)
+            err = max(errs)
+            if err > TOL_LSB:
+                raise AssertionError(f"{case['kernel']} {case['name']} {h}x{w}: {err} LSB from its plain version")
+            before = F.LAUNCHES[case["kernel"]]
+            it = itertools.count()
+
+            def kernel_call(case=case, it=it):
+                i = next(it) % 3  # rotate 3 inputs: more than the L2 cache holds
+                case["run"](case["ins"][i], case["scales"][i])
+
+            ms = time_ms(kernel_call, kernel_reps, device)
+            if device.type == "cuda" and F.LAUNCHES[case["kernel"]] == before:
+                raise AssertionError(f"{case['kernel']} did not launch")
+            plain_ms = time_ms(lambda case=case: case["plain"](case["ins"][0], case["scales"][0]),
+                               plain_reps, device, warmup=1)
+            bound_s = max(case["bytes"] / HBM_BYTES_PER_S, case["ops"] / F32_OPS_PER_S)
+            row = dict(
+                kernel=case["kernel"], case=case["name"], h=h, w=w, frames=3, max_lsb=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
+                bound_by="bytes" if case["bytes"] / HBM_BYTES_PER_S >= case["ops"] / F32_OPS_PER_S else "operations",
+                bytes=case["bytes"], ops=case["ops"],
+            )
+            rows.append(row)
+            log(f"[kernel] {row['kernel']:<13} {row['case']:<24} {h}x{w}x3 frames: "
+                f"max {err} LSB, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                f"by {row['bound_by']}, {row['bound_ms'] / ms:.1%} of bound)")
+            del case["ins"], case["scales"]
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path
+# ---------------------------------------------------------------------------
+
+
+def expected_kernel(name: str) -> str:
+    from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS
+
+    if name == "cat":
+        return "iso_u8"
+    kinds = tuple(e.kind for e in NONUV_SPECS[name].effects if e.enabled)
+    return {"blur": "iso_u8", "streak": "streak_u8"}.get(kinds[0] if kinds else "", "pointwise_u8")
+
+
+def main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MAIN_REPS,
+                    small_hw=SMALL_HW) -> dict:
+    from animal_vision_tpu_torch.ops import fused_nonuv as F
+    from animal_vision_tpu_torch.species import NON_UV_NAMES, get_animal
+
+    rng = np.random.default_rng(SEED + 1)
+    h, w = hw
+    host = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    frames = torch.from_numpy(host).to(device)
+    animals = {name: get_animal(name, device) for name in NON_UV_NAMES}
+    sync(device)
+
+    # The run the launch counters are read around: once through each entry
+    # point per species, with the plain versions barred from CUDA tensors.
+    per_species_launches = {}
+    outputs = {}
+    with plain_forbidden_on_cuda():
+        F.reset_launches()
+        for name, animal in animals.items():
+            before = dict(F.LAUNCHES)
+            base1, out1 = animal.visualize(host[0])
+            base_b, out_b = animal.visualize_batch_device(frames)
+            per_species_launches[name] = {k: F.LAUNCHES[k] - before[k] for k in F.LAUNCHES}
+            outputs[name] = (base1, out1, base_b, out_b)
+        sync(device)
+        launches = dict(F.LAUNCHES)
+    log(f"[main] launches over the main-path run: {launches}")
+
+    results = {}
+    for name, animal in animals.items():
+        want = expected_kernel(name)
+        moved = per_species_launches[name]
+        if device.type == "cuda" and (moved[want] != 2 or sum(moved.values()) != 2):
+            raise AssertionError(f"{name}: expected 2 launches of {want}, counted {moved}")
+        base1, out1, base_b, out_b = outputs[name]
+        if out1.shape != (h, w, 3) or out1.dtype != np.uint8 or tuple(out_b.shape) != (batch, h, w, 3):
+            raise AssertionError(f"{name}: output {out1.shape} {out1.dtype}, batch {tuple(out_b.shape)}")
+        if name != "cat" and not (np.array_equal(base1, host[0]) and torch.equal(base_b, frames)):
+            raise AssertionError(f"{name}: baseline is not the input frame")
+        _, plain = animal.plain_transform((h, w, 3), np.uint8)(frames)
+        err = max(max_lsb(out_b, plain), max_lsb(torch.from_numpy(out1), plain[0].cpu()))
+        if name == "cat":
+            err = max(err, max_lsb(torch.from_numpy(base1), base_b[0].cpu()))
+        # a small frame against the CPU path (the plain versions)
+        small = rng.integers(0, 256, (*small_hw, 3), dtype=np.uint8)
+        ref_b, ref = get_animal(name, "cpu").visualize(small)
+        got_b, got = animal.visualize(small)
+        small_err = max(max_lsb(torch.from_numpy(got), torch.from_numpy(ref)),
+                        max_lsb(torch.from_numpy(got_b), torch.from_numpy(ref_b)))
+        if err > TOL_LSB or small_err > TOL_LSB:
+            raise AssertionError(f"{name}: {err} LSB from the plain path at {h}x{w}, {small_err} at {small_hw}")
+
+        def one(animal=animal):
+            animal.visualize(host[0])
+
+        def batched(animal=animal):
+            animal.visualize_batch_device(frames)
+            sync(device)
+
+        vis = wall_ms(one, reps)
+        bat = wall_ms(batched, reps)
+        results[name] = dict(
+            kernel=want, max_lsb_plain=err, max_lsb_cpu_small=small_err,
+            visualize_ms=vis, visualize_fps=1e3 / vis["median"],
+            batch_ms=bat, batch_fps=batch * 1e3 / bat["median"],
+        )
+        log(f"[main] {name:<9} {want:<13} max {err} LSB vs plain, {small_err} vs CPU at "
+            f"{small_hw[0]}x{small_hw[1]}; visualize {results[name]['visualize_fps']:8.1f} fps "
+            f"(median {vis['median']:.3f} ms, p90 {vis['p90']:.3f} ms), batch of {batch} on device "
+            f"{results[name]['batch_fps']:8.1f} fps (median {bat['median']:.3f} ms, p90 {bat['p90']:.3f} ms, "
+            f"n={bat['n']})")
+    hm = len(results) / sum(1.0 / r["batch_fps"] for r in results.values())
+    hm_vis = len(results) / sum(1.0 / r["visualize_fps"] for r in results.values())
+    return dict(species=results, launches=launches, hm_fps=hm, hm_visualize_fps=hm_vis)
+
+
+def wall_ms(fn, reps: int) -> dict:
+    """Host-clock milliseconds of ``reps`` calls, each ending synchronized:
+    median and p90 (the highest percentile with 10 samples beyond it at 100
+    calls)."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return dict(median=float(np.median(samples)), p90=float(np.percentile(samples, 90)), n=reps)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5
+# ---------------------------------------------------------------------------
+
+
+def profile_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, names=PROFILE_SPECIES,
+                  reps=PROFILE_REPS) -> dict:
+    """Where the time of one species goes: ``torch.profiler`` device time by
+    name (kernels, copies, reductions) over a few calls of each entry point,
+    beside the host-clock time of the same window. The profiler's own cost
+    is in the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from animal_vision_tpu_torch.species import get_animal
+
+    rng = np.random.default_rng(SEED + 2)
+    host = rng.integers(0, 256, (batch, *hw, 3), dtype=np.uint8)
+    frames = torch.from_numpy(host).to(device)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    out = {}
+    for name in names:
+        animal = get_animal(name, device)
+        entries = {
+            "visualize": lambda a=animal: a.visualize(host[0]),
+            f"batch{batch}": lambda a=animal: a.visualize_batch_device(frames),
+        }
+        for label, fn in entries.items():
+            fn()
+            sync(device)
+            with profile(activities=activities, acc_events=True) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                sync(device)
+                wall_us = (time.perf_counter() - t0) * 1e6 / reps
+            by_name = {}
+            for e in prof.key_averages():
+                # device-side events only (kernels, copies, fills); CPU ops
+                # report their kernels' time again, and CUPTI's own buffer
+                # requests are the profiler's cost
+                if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("Activity Buffer"):
+                    continue
+                us = e.self_device_time_total
+                if us > 0:
+                    by_name[e.key] = us / reps
+            busy_us = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            out[f"{name} {label}"] = dict(wall_us=wall_us, device_us=busy_us, device_by_name=by_name)
+            log(f"[profile] {name:<5} {label:<9} wall {wall_us:9.1f} us/call, device busy {busy_us:9.1f} us "
+                f"({busy_us / wall_us:.1%}): " + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
+    return out
+
+
+def summary(kernel_rows: list[dict], launches: dict) -> dict:
+    """One entry per kernel: worst error over its cases and shapes; time,
+    plain time and bound of its heaviest main-path case at 1080p."""
+    representative = {"iso_u8": "dog", "streak_u8": "deer", "pointwise_u8": "rat gain"}
+    out = []
+    for kernel, case in representative.items():
+        rows = [r for r in kernel_rows if r["kernel"] == kernel]
+        rep = next(r for r in rows if r["case"].split(" r=")[0] == case and (r["h"], r["w"]) == MAIN_HW)
+        out.append(dict(
+            name=kernel, route="cuda", source=SOURCE, replaces=REPLACES[kernel],
+            launches=launches[kernel], max_abs_err=max(r["max_lsb"] for r in rows),
+            max_lsb=max(r["max_lsb"] for r in rows), case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']}",
+            ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+            bound_by=rep["bound_by"], library_ms=None,
+        ))
+    return {"kernels": out}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    import animal_vision_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    info = device_phase()
+    build = build_phase()
+    kernel_rows = kernels_phase(device)
+    main_run = main_path_phase(device)
+    profile_run = profile_phase(device)
+    if any(m.startswith("jax") or m == "animal_vision_tpu" or m.startswith("animal_vision_tpu.")
+           for m in sys.modules):
+        raise AssertionError("the port imported JAX or the JAX package")
+    log(f"[main] 20-species harmonic mean at {MAIN_HW[0]}x{MAIN_HW[1]}, batch of {BATCH} on the device: "
+        f"{main_run['hm_fps']:.1f} fps; through visualize (host round trip): "
+        f"{main_run['hm_visualize_fps']:.1f} fps; card: {info['card']}")
+    kernels = summary(kernel_rows, main_run["launches"])
+    REPORT.parent.mkdir(exist_ok=True)
+    REPORT.write_text(json.dumps(dict(device=info, build=build, kernel_cases=kernel_rows,
+                                      main_path=main_run, profile=profile_run, kernels=kernels["kernels"],
+                                      seconds=time.perf_counter() - t0), indent=1))
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(info["card"])
+    print(json.dumps(kernels))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"], "count": info["count"]}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,56 @@
+"""Import rules of the PyTorch port: no JAX, no JAX package, no OpenCV, and
+no work at import time."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (JAX on the CPU backend, as tests/conftest.py sets it)
+import torch  # noqa: F401
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import animal_vision_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+    or m == "animal_vision_tpu" or m.startswith("animal_vision_tpu.") or m == "cv2"
+)
+from animal_vision_tpu_torch.ops import _build
+print(json.dumps({"modules": names, "bad": bad, "libs": sorted(_build._libs)}))
+"""
+
+
+def test_port_imports_no_jax_package_or_cv2():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=300,
+        check=True,
+    )
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    assert report["libs"] == []  # importing builds and loads no kernel library
+    expected = {
+        "animal_vision_tpu_torch.core.blur", "animal_vision_tpu_torch.core.color",
+        "animal_vision_tpu_torch.core.effects", "animal_vision_tpu_torch.core.geometry",
+        "animal_vision_tpu_torch.core.linalg", "animal_vision_tpu_torch.ops._build",
+        "animal_vision_tpu_torch.ops.fused_nonuv", "animal_vision_tpu_torch.species.base",
+        "animal_vision_tpu_torch.species.nonuv",
+    }
+    assert expected <= set(report["modules"])
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
