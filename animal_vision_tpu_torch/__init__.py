@@ -5,8 +5,10 @@ same ``Animal.visualize(frame) -> (baseline, transformed)`` contract, with
 every kernel of the JAX package's Pallas code written by hand for sm_90a.
 This package imports neither JAX nor ``animal_vision_tpu``.
 
-Covered so far: the 20 non-UV species (``species``), whose uint8 path runs
-the three kernels in ``csrc/fused_nonuv.cu``.
+Covered so far (``species``): the 20 non-UV species, whose uint8 path runs
+the three kernels in ``csrc/fused_nonuv.cu``, and the UV species honeybee,
+goldfish, reindeer and kestrel on the analytic spectral path, whose blurs
+run the kernel in ``csrc/fused_blur.cu``.
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,8 @@
 Counterpart of ``animal_vision_tpu/core/blur.py``. Kernel sizes, tap
 weights, reflect-101 indices and the per-row streak tables are NumPy host
 tables, identical to the JAX package's; the blurs themselves are PyTorch
-shifted-slice sums over (..., H, W, C) tensors.
+shifted-slice sums over (..., H, W, C) tensors. The UV blur
+(``gaussian_blur_uv``) goes through the ``blur_uv`` kernel on the card.
 
 The per-row "visual streak" blur keeps the reference's quirk: each (W, 3)
 image row goes through ``cv2.GaussianBlur`` as a W x 3 single-channel
@@ -15,9 +16,12 @@ pass 2 blurs along W with sigmaY[y], and nothing blurs vertically.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
+
+from animal_vision_tpu_torch.core.tables import device_table
 
 
 def cv2_auto_ksize(sigma: float, uint8_depth: bool = False) -> int:
@@ -26,6 +30,11 @@ def cv2_auto_ksize(sigma: float, uint8_depth: bool = False) -> int:
     factor = 3 if uint8_depth else 4
     k = int(np.round(sigma * factor * 2 + 1)) | 1
     return max(k, 1)
+
+
+def uv_ksize(sigma: float) -> int:
+    """The UV helper's explicit kernel size ``2*ceil(3*sigma)+1``."""
+    return int(2 * math.ceil(3 * sigma) + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,13 +62,19 @@ def reflect101_index(p, n: int):
     return np.where(m < n, m, period - m)
 
 
+@functools.lru_cache(maxsize=256)
+def _reflect_index(n: int, pad: int, device: str) -> torch.Tensor:
+    """The reflect-101 source index of each of the n + 2*pad padded
+    positions, as an int64 tensor on ``device``, made once."""
+    idx = reflect101_index(np.arange(-pad, n + pad), n).astype(np.int64)
+    return torch.from_numpy(idx).to(device)
+
+
 def _pad_reflect101(img: torch.Tensor, pad: int, axis: int) -> torch.Tensor:
     """Pad ``img`` along ``axis`` by ``pad`` on both sides with reflect-101."""
     if pad == 0:
         return img
-    n = img.shape[axis]
-    idx = reflect101_index(np.arange(-pad, n + pad), n).astype(np.int64)
-    return torch.index_select(img, axis, torch.from_numpy(idx).to(img.device))
+    return torch.index_select(img, axis, _reflect_index(int(img.shape[axis]), pad, str(img.device)))
 
 
 def conv1d_axis(img: torch.Tensor, kernel, axis: int) -> torch.Tensor:
@@ -84,6 +99,27 @@ def gaussian_blur_hwc(img: torch.Tensor, sigma: float) -> torch.Tensor:
     like ``cv2.GaussianBlur(img, (0,0), sigma)`` on float32."""
     kern = gaussian_kernel_1d(cv2_auto_ksize(sigma), float(sigma))
     return conv1d_axis(conv1d_axis(img, kern, -2), kern, -3)
+
+
+def uv_taps(sigma: float, device) -> torch.Tensor:
+    """The ``uv_ksize(sigma)`` Gaussian taps as a float32 tensor on
+    ``device``, made once per (sigma, device)."""
+    return device_table(gaussian_kernel_1d(uv_ksize(sigma), float(sigma)), device)
+
+
+def gaussian_blur_uv(img: torch.Tensor, sigma: float, plain: bool = False) -> torch.Tensor:
+    """UV-helper blur of (..., H, W, C) with an explicit trailing channel
+    axis (C = 1 for a map): ``k = 2*ceil(3*sigma)+1`` taps, reflect-101, W
+    pass first. The input unchanged when ``sigma <= 0``. Runs the
+    ``blur_uv`` kernel (its plain version on the CPU, or where ``plain``)."""
+    from animal_vision_tpu_torch.ops import fused_blur  # it imports this module
+
+    if sigma <= 0:
+        return img
+    taps = uv_taps(float(sigma), img.device)
+    frames = img.reshape(-1, *img.shape[-3:])
+    out = fused_blur.blur_uv_plain(frames, taps) if plain else fused_blur.blur_uv(frames, taps)
+    return out.reshape(img.shape)
 
 
 def _channel_mix_matrix(ksize: int, sigma: float, channels: int = 3) -> np.ndarray:

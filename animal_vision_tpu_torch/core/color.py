@@ -90,6 +90,26 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x * scale, 0.0, 1.0)
 
 
+def to_float01(img: torch.Tensor) -> torch.Tensor:
+    """float32 in [0,1], the UV path's convention: integer frames divide by
+    255 with no clip; float frames divide by 255, then clip, only where the
+    frame's max exceeds 1.001. The test is per frame over the last three
+    (H, W, C) axes, on the frames' device."""
+    if not img.dtype.is_floating_point:
+        return img.to(torch.float32) / 255.0
+    x = img.to(torch.float32)
+    needs = torch.amax(x, dim=(-3, -2, -1), keepdim=True) > 1.001
+    return torch.where(needs, torch.clamp(x / 255.0, 0.0, 1.0), x)
+
+
+def from_float01(img01: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float [0,1] -> ``dtype``; integers get ``clip(x*255 + 0.5, 0, 255)``
+    truncated, as the reference's UV helpers do."""
+    if not dtype.is_floating_point:
+        return torch.clamp(img01 * 255.0 + 0.5, 0.0, 255.0).to(dtype)
+    return img01.to(dtype)
+
+
 def encode_output(linear_img: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """clip -> linear_to_srgb -> clip -> dtype restore.
 

@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -43,16 +45,6 @@ __device__ __forceinline__ float load_scaled(uint8_t v, float scale) {
   return clamp01(static_cast<float>(v) * scale);
 }
 __device__ __forceinline__ float load_scaled(float v, float scale) { return clamp01(v * scale); }
-
-// BORDER_REFLECT_101 for any offset, through the period-2(n-1) reflection,
-// so that frames narrower than the kernel stay right.
-__device__ __forceinline__ int reflect101(int p, int n) {
-  if (n == 1) return 0;
-  const int period = 2 * (n - 1);
-  int m = p % period;
-  if (m < 0) m += period;
-  return m < n ? m : period - m;
-}
 
 // ---------------------------------------------------------------------------
 // Kernel 1: isotropic blur species (dog, wolf, lion, ... and the cat).
@@ -278,8 +270,6 @@ pointwise_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, con
 }  // namespace
 
 extern "C" {
-
-const char* av_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 int av_iso_u8(const void* img, void* out, const void* scale, const void* params, int ksize, int n,
               int h, int w, void* stream) {

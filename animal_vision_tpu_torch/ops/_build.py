@@ -21,6 +21,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
@@ -114,3 +116,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.av_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def launch(lib: ctypes.CDLL, fn: str, device, *args) -> None:
+    """Call entry point ``fn`` with ``args`` and the current stream of the
+    CUDA ``device``; raise if it returns a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    check(lib, err, fn)

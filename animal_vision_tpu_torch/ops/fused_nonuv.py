@@ -87,11 +87,7 @@ def _check_operands(img: torch.Tensor, scale: torch.Tensor, *tables: torch.Tenso
 
 
 def _launch(fn: str, img: torch.Tensor, *args) -> None:
-    lib = _lib()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    _build.check(lib, err, fn)
+    _build.launch(_lib(), fn, img.device, *args)
 
 
 def scale_of(img: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Species registry: slug -> Animal, one cached instance per (slug, device).
 
 Counterpart of ``animal_vision_tpu/species/__init__.py`` for the 20 non-UV
-species. Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.
+species and the UV species ported so far (``PORTED_UV_NAMES``). Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,10 @@ import torch
 
 from animal_vision_tpu_torch.species.base import Animal
 from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS, Cat, NonUVAnimal
+from animal_vision_tpu_torch.species.uv.goldfish import Goldfish
+from animal_vision_tpu_torch.species.uv.honeybee import HoneyBee
+from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
+from animal_vision_tpu_torch.species.uv.reindeer import Reindeer
 
 _FACTORIES: dict[str, Callable[[torch.device], Animal]] = {}
 _DISPLAY: dict[str, str] = {}
@@ -62,3 +66,14 @@ for _slug, _spec in NONUV_SPECS.items():
     register(_slug, _slug.capitalize(), (lambda dev, s=_spec: NonUVAnimal(s, dev)))
 
 NON_UV_NAMES = ["cat"] + sorted(NONUV_SPECS)
+
+register("honeybee", "HoneyBee", HoneyBee)
+register("reindeer", "ReinDeer", Reindeer)
+register("goldfish", "GoldFish", Goldfish)
+register("kestrel", "Kestrel", Kestrel)
+
+# The JAX package's gallery groupings, in its order, listing only the UV
+# species ported so far.
+UV_NAMES = ["honeybee", "reindeer", "goldfish"]
+UNIQUE_UV_NAMES = ["kestrel"]
+PORTED_UV_NAMES = UV_NAMES + UNIQUE_UV_NAMES

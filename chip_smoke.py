@@ -11,17 +11,23 @@ raises on failure:
 2. build: compiles every ``csrc/*.cu`` kernel library (one nvcc per source,
    all at once) and prints ptxas' register and shared-memory report;
 3. kernels: every kernel of the main path against its plain PyTorch version
-   on the card at 1080x1920 and 721x1283 (two random frames plus a frame of
-   0/1 values, so both branches of the per-frame scale run), <= 1 LSB; then
-   each kernel's time (CUDA events), its plain version's time and its bound;
+   on the card at 1080x1920 and 721x1283: the three non-UV kernels on two
+   random frames plus a frame of 0/1 values (so both branches of the
+   per-frame scale run), <= 1 LSB; the UV blur on 3 float32 frames in
+   [0, 1] with 1 or 3 channels and ksize 3..37, <= 1e-5; then each kernel's
+   time (CUDA events), its plain version's time, its bound, and for the UV
+   blur a library reference (reflect pad + two depthwise convolutions);
 4. main path: ``get_animal(name).visualize(frame)`` and
-   ``visualize_batch_device`` (4 frames already on the card) at 1080p for
-   the 20 non-UV species, with the launch counters read around that run;
-   each species against its plain composition on the card (<= 1 LSB) and
-   against the CPU path on a small frame (<= 1 LSB); then fps per species
-   and the 20-species harmonic mean;
+   ``visualize_batch_device`` (4 frames already on the card) at 1080p, first
+   for the 20 non-UV species, then for the ported UV species, with the
+   launch counters set to 0 before and read after each of the two runs;
+   each non-UV species against its plain composition on the card (<= 1 LSB)
+   and against the CPU path on a small frame (<= 1 LSB), each UV species
+   the same at >= 40 dB PSNR with its baseline within 1 LSB; then fps per
+   species and each group's harmonic mean;
 5. profile: ``torch.profiler`` device time by name beside the host-clock
-   time for one species per kernel (and the cat) through each entry point;
+   time for one non-UV species per kernel, the cat and the UV species,
+   through each entry point;
 6. summary: one JSON line with each kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -53,13 +59,28 @@ F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 KERNEL_REPS = 100
 PLAIN_REPS = 5
 MAIN_REPS = 100
-PROFILE_SPECIES = ("dog", "deer", "rat", "cat")  # one per kernel, and the cat's products
+BLUR_KSIZES = (3, 7, 9, 13, 19, 37)
+BLUR_CHANNELS = (1, 3)
+BLUR_TOL = 1e-5  # max abs error on [0, 1] data
+BLUR_REPS = 20
+BLUR_PLAIN_REPS = 2
+BLUR_REPRESENTATIVE = (19, 3)  # (ksize, C): kestrel's structure tensor at 1080p
+UV_REPS = 20
+UV_MIN_DB = 40.0
+# one non-UV species per kernel, the cat's products, and the UV species
+PROFILE_SPECIES = ("dog", "deer", "rat", "cat", "honeybee", "reindeer", "goldfish", "kestrel")
 PROFILE_REPS = 5
-SOURCE = "animal_vision_tpu_torch/csrc/fused_nonuv.cu"
+SOURCES = {
+    "iso_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
+    "streak_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
+    "pointwise_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
+    "blur_uv": "animal_vision_tpu_torch/csrc/fused_blur.cu",
+}
 REPLACES = {
     "iso_u8": "animal_vision_tpu/ops/fused_nonuv.py:199",
     "streak_u8": "animal_vision_tpu/ops/fused_nonuv.py:335",
     "pointwise_u8": "animal_vision_tpu/ops/fused_nonuv.py:530",
+    "blur_uv": "animal_vision_tpu/ops/fused_blur.py:68",
 }
 REPORT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_report.json"
 
@@ -105,13 +126,35 @@ def max_lsb(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int16) - b.to(torch.int16)).abs().max().item())
 
 
+def psnr_db(a: torch.Tensor, b: torch.Tensor) -> float:
+    """PSNR of two uint8 images, in dB (inf when equal)."""
+    mse = ((a.to(torch.float64) - b.to(torch.float64).to(a.device)) / 255.0).pow(2).mean().item()
+    return float("inf") if mse == 0 else float(10.0 * np.log10(1.0 / mse))
+
+
+def reset_counters() -> None:
+    from animal_vision_tpu_torch.ops import fused_blur as B
+    from animal_vision_tpu_torch.ops import fused_nonuv as F
+
+    F.reset_launches()
+    B.reset_launches()
+
+
+def counters() -> dict:
+    from animal_vision_tpu_torch.ops import fused_blur as B
+    from animal_vision_tpu_torch.ops import fused_nonuv as F
+
+    return {**F.LAUNCHES, **B.LAUNCHES}
+
+
 @contextlib.contextmanager
 def plain_forbidden_on_cuda():
     """Make every plain kernel version raise if a CUDA tensor reaches it."""
+    from animal_vision_tpu_torch.ops import fused_blur as B
     from animal_vision_tpu_torch.ops import fused_nonuv as F
 
-    names = ("iso_u8_plain", "streak_u8_plain", "pointwise_u8_plain")
-    saved = {n: getattr(F, n) for n in names}
+    names = ((F, "iso_u8_plain"), (F, "streak_u8_plain"), (F, "pointwise_u8_plain"), (B, "blur_uv_plain"))
+    saved = {n: getattr(mod, n) for mod, n in names}
 
     def guard(name, fn):
         def wrapped(img, *args, **kwargs):
@@ -120,13 +163,13 @@ def plain_forbidden_on_cuda():
             return fn(img, *args, **kwargs)
         return wrapped
 
-    for n in names:
-        setattr(F, n, guard(n, saved[n]))
+    for mod, n in names:
+        setattr(mod, n, guard(n, saved[n]))
     try:
         yield
     finally:
-        for n in names:
-            setattr(F, n, saved[n])
+        for mod, n in names:
+            setattr(mod, n, saved[n])
 
 
 # ---------------------------------------------------------------------------
@@ -290,9 +333,91 @@ def kernels_phase(device: torch.device, shapes=SHAPES, kernel_reps=KERNEL_REPS,
     return rows
 
 
+def blur_phase(device: torch.device, shapes=SHAPES, ksizes=BLUR_KSIZES, channels=BLUR_CHANNELS,
+               reps=BLUR_REPS, plain_reps=BLUR_PLAIN_REPS) -> list[dict]:
+    """``blur_uv`` against ``blur_uv_plain``: 3 frames per launch, rotated
+    over three copies; time, plain time, bound, and a library reference:
+    ``F.pad(mode="reflect")`` and two depthwise ``F.conv2d`` (cuDNN, TF32
+    off) on the same frames in NCHW, where the pad is below the frame size."""
+    import torch.nn.functional as nnf
+
+    from animal_vision_tpu_torch.core import blur
+    from animal_vision_tpu_torch.ops import fused_blur as B
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    rows = []
+    for h, w in shapes:
+        for c in channels:
+            ins = [torch.rand((3, h, w, c), generator=gen, device=device) for _ in range(3)]
+            for k in ksizes:
+                sigma = (k - 1) / 6.0
+                if blur.uv_ksize(sigma) != k:
+                    raise AssertionError(f"sigma {sigma} does not give ksize {k}")
+                taps = blur.uv_taps(sigma, str(device))
+                err = max((B.blur_uv(x, taps) - B.blur_uv_plain(x, taps)).abs().max().item() for x in ins)
+                if not err <= BLUR_TOL:
+                    raise AssertionError(f"blur_uv {h}x{w} C={c} k={k}: {err} from its plain version")
+                before = B.LAUNCHES["blur_uv"]
+                it = itertools.count()
+                ms = time_ms(lambda: B.blur_uv(ins[next(it) % 3], taps), reps, device)
+                if device.type == "cuda" and B.LAUNCHES["blur_uv"] == before:
+                    raise AssertionError("blur_uv did not launch")
+                plain_ms = time_ms(lambda: B.blur_uv_plain(ins[0], taps), plain_reps, device, warmup=1)
+                r = k // 2
+                library_ms = library_err = None
+                if r < h and r < w:
+                    nchw = ins[0].permute(0, 3, 1, 2).contiguous()
+                    w_x = taps.view(1, 1, 1, k).expand(c, 1, 1, k).contiguous()
+                    w_y = taps.view(1, 1, k, 1).expand(c, 1, k, 1).contiguous()
+
+                    def library(nchw=nchw, w_x=w_x, w_y=w_y, r=r, c=c):
+                        padded = nnf.pad(nchw, (r, r, r, r), mode="reflect")
+                        return nnf.conv2d(nnf.conv2d(padded, w_x, groups=c), w_y, groups=c)
+
+                    library_err = (library().permute(0, 2, 3, 1) - B.blur_uv_plain(ins[0], taps)).abs().max().item()
+                    library_ms = time_ms(library, reps, device)
+                    del nchw
+                elems = 3 * h * w * c
+                nbytes, ops = 2 * 4 * elems + 4 * k, 2 * 2 * k * elems
+                bound_s = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+                row = dict(
+                    kernel="blur_uv", case=f"C={c} k={k}", ksize=k, channels=c, h=h, w=w, frames=3,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=library_err,
+                    bound_ms=bound_s * 1e3, bytes=nbytes, ops=ops,
+                    bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
+                )
+                rows.append(row)
+                lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+                log(f"[kernel] blur_uv       {row['case']:<24} {h}x{w} 3 frames: max err {err:.3g}, {ms:.4f} ms "
+                    f"(plain {plain_ms:.3f} ms, library {lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                    f"{row['bound_ms'] / ms:.1%} of bound)")
+            del ins
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
+
+
+def counted_run(animals: dict, host: np.ndarray, frames: torch.Tensor, device: torch.device):
+    """The run the launch counters are read around: the counters set to 0,
+    then once through each entry point per species (``host[0]`` through
+    ``visualize``, ``frames`` through ``visualize_batch_device``) with the
+    plain versions barred from CUDA tensors, then the counters read.
+    Returns (launches per species, outputs per species, launches)."""
+    per_species = {}
+    outputs = {}
+    with plain_forbidden_on_cuda():
+        reset_counters()
+        for name, animal in animals.items():
+            before = counters()
+            base1, out1 = animal.visualize(host[0])
+            base_b, out_b = animal.visualize_batch_device(frames)
+            per_species[name] = {k: v - before[k] for k, v in counters().items()}
+            outputs[name] = (base1, out1, base_b, out_b)
+        sync(device)
+        return per_species, outputs, counters()
 
 
 def expected_kernel(name: str) -> str:
@@ -306,7 +431,6 @@ def expected_kernel(name: str) -> str:
 
 def main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MAIN_REPS,
                     small_hw=SMALL_HW) -> dict:
-    from animal_vision_tpu_torch.ops import fused_nonuv as F
     from animal_vision_tpu_torch.species import NON_UV_NAMES, get_animal
 
     rng = np.random.default_rng(SEED + 1)
@@ -316,21 +440,8 @@ def main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MAIN_REP
     animals = {name: get_animal(name, device) for name in NON_UV_NAMES}
     sync(device)
 
-    # The run the launch counters are read around: once through each entry
-    # point per species, with the plain versions barred from CUDA tensors.
-    per_species_launches = {}
-    outputs = {}
-    with plain_forbidden_on_cuda():
-        F.reset_launches()
-        for name, animal in animals.items():
-            before = dict(F.LAUNCHES)
-            base1, out1 = animal.visualize(host[0])
-            base_b, out_b = animal.visualize_batch_device(frames)
-            per_species_launches[name] = {k: F.LAUNCHES[k] - before[k] for k in F.LAUNCHES}
-            outputs[name] = (base1, out1, base_b, out_b)
-        sync(device)
-        launches = dict(F.LAUNCHES)
-    log(f"[main] launches over the main-path run: {launches}")
+    per_species_launches, outputs, launches = counted_run(animals, host, frames, device)
+    log(f"[main] launches over the non-UV main-path run: {launches}")
 
     results = {}
     for name, animal in animals.items():
@@ -374,6 +485,73 @@ def main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MAIN_REP
             f"{small_hw[0]}x{small_hw[1]}; visualize {results[name]['visualize_fps']:8.1f} fps "
             f"(median {vis['median']:.3f} ms, p90 {vis['p90']:.3f} ms), batch of {batch} on device "
             f"{results[name]['batch_fps']:8.1f} fps (median {bat['median']:.3f} ms, p90 {bat['p90']:.3f} ms, "
+            f"n={bat['n']})")
+    hm = len(results) / sum(1.0 / r["batch_fps"] for r in results.values())
+    hm_vis = len(results) / sum(1.0 / r["visualize_fps"] for r in results.values())
+    return dict(species=results, launches=launches, hm_fps=hm, hm_visualize_fps=hm_vis)
+
+
+def uv_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=UV_REPS,
+                       small_hw=SMALL_HW) -> dict:
+    """The ported UV species through both entry points, counters around the
+    run; each against its plain composition on the card and against the CPU
+    path on a small frame (>= 40 dB, baselines within 1 LSB); fps."""
+    from animal_vision_tpu_torch.species import PORTED_UV_NAMES, get_animal
+
+    rng = np.random.default_rng(SEED + 3)
+    h, w = hw
+    host = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    frames = torch.from_numpy(host).to(device)
+    animals = {name: get_animal(name, device) for name in PORTED_UV_NAMES}
+    sync(device)
+
+    per_species_launches, outputs, launches = counted_run(animals, host, frames, device)
+    log(f"[main] launches over the UV main-path run: {launches}")
+
+    results = {}
+    for name, animal in animals.items():
+        moved = per_species_launches[name]
+        if device.type == "cuda" and (moved["blur_uv"] < 2 or sum(moved.values()) != moved["blur_uv"]):
+            raise AssertionError(f"{name}: expected blur_uv launches only, counted {moved}")
+        base1, out1, base_b, out_b = outputs[name]
+        if out1.shape != (h, w, 3) or out1.dtype != np.uint8 or tuple(out_b.shape) != (batch, h, w, 3):
+            raise AssertionError(f"{name}: output {out1.shape} {out1.dtype}, batch {tuple(out_b.shape)}")
+        plain_base, plain = animal.plain_transform((h, w, 3), np.uint8)(frames)
+        db = min(psnr_db(out_b, plain), psnr_db(torch.from_numpy(out1), plain[0]))
+        lsb = max(max_lsb(out_b, plain), max_lsb(torch.from_numpy(out1).to(device), plain[0]))
+        base_lsb = max(max_lsb(base_b, plain_base), max_lsb(torch.from_numpy(base1).to(device), plain_base[0]))
+        batch_vs_frame = max_lsb(out_b[0], torch.from_numpy(out1).to(device))
+        small = rng.integers(0, 256, (*small_hw, 3), dtype=np.uint8)
+        ref_b, ref = get_animal(name, "cpu").visualize(small)
+        got_b, got = animal.visualize(small)
+        small_db = psnr_db(torch.from_numpy(got), torch.from_numpy(ref))
+        small_lsb = max_lsb(torch.from_numpy(got), torch.from_numpy(ref))
+        small_base_lsb = max_lsb(torch.from_numpy(got_b), torch.from_numpy(ref_b))
+        if db < UV_MIN_DB or small_db < UV_MIN_DB or base_lsb > TOL_LSB or small_base_lsb > TOL_LSB:
+            raise AssertionError(f"{name}: {db:.2f} dB from the plain path at {h}x{w} (baseline {base_lsb} LSB), "
+                                 f"{small_db:.2f} dB from the CPU path at {small_hw} (baseline {small_base_lsb} LSB)")
+
+        def one(animal=animal):
+            animal.visualize(host[0])
+
+        def batched(animal=animal):
+            animal.visualize_batch_device(frames)
+            sync(device)
+
+        vis = wall_ms(one, reps)
+        bat = wall_ms(batched, reps)
+        results[name] = dict(
+            blur_uv_launches=moved["blur_uv"], psnr_plain_db=db, max_lsb_plain=lsb, baseline_max_lsb_plain=base_lsb,
+            max_lsb_batch_vs_frame=batch_vs_frame, psnr_cpu_small_db=small_db, max_lsb_cpu_small=small_lsb,
+            baseline_max_lsb_cpu_small=small_base_lsb,
+            visualize_ms=vis, visualize_fps=1e3 / vis["median"],
+            batch_ms=bat, batch_fps=batch * 1e3 / bat["median"],
+        )
+        log(f"[main] {name:<9} blur_uv x{moved['blur_uv']:<3} {db:.2f} dB / max {lsb} LSB vs plain (baseline "
+            f"{base_lsb} LSB), {small_db:.2f} dB / max {small_lsb} LSB vs CPU at {small_hw[0]}x{small_hw[1]}; "
+            f"batch[0] vs visualize max {batch_vs_frame} LSB; visualize {results[name]['visualize_fps']:7.1f} fps "
+            f"(median {vis['median']:.3f} ms, p90 {vis['p90']:.3f} ms), batch of {batch} on device "
+            f"{results[name]['batch_fps']:7.1f} fps (median {bat['median']:.3f} ms, p90 {bat['p90']:.3f} ms, "
             f"n={bat['n']})")
     hm = len(results) / sum(1.0 / r["batch_fps"] for r in results.values())
     hm_vis = len(results) / sum(1.0 / r["visualize_fps"] for r in results.values())
@@ -446,21 +624,31 @@ def profile_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, names=PROFILE_S
     return out
 
 
-def summary(kernel_rows: list[dict], launches: dict) -> dict:
+def summary(kernel_rows: list[dict], blur_rows: list[dict], launches: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
-    plain time and bound of its heaviest main-path case at 1080p."""
+    plain time, bound and library time of its heaviest main-path case at
+    1080p. Launches come from the main-path run of the kernel's species."""
     representative = {"iso_u8": "dog", "streak_u8": "deer", "pointwise_u8": "rat gain"}
     out = []
     for kernel, case in representative.items():
         rows = [r for r in kernel_rows if r["kernel"] == kernel]
         rep = next(r for r in rows if r["case"].split(" r=")[0] == case and (r["h"], r["w"]) == MAIN_HW)
         out.append(dict(
-            name=kernel, route="cuda", source=SOURCE, replaces=REPLACES[kernel],
+            name=kernel, route="cuda", source=SOURCES[kernel], replaces=REPLACES[kernel],
             launches=launches[kernel], max_abs_err=max(r["max_lsb"] for r in rows),
             max_lsb=max(r["max_lsb"] for r in rows), case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']}",
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=None,
         ))
+    k, c = BLUR_REPRESENTATIVE
+    rep = next(r for r in blur_rows if (r["ksize"], r["channels"], r["h"], r["w"]) == (k, c, *MAIN_HW))
+    out.append(dict(
+        name="blur_uv", route="cuda", source=SOURCES["blur_uv"], replaces=REPLACES["blur_uv"],
+        launches=launches["blur_uv"], max_abs_err=max(r["max_abs_err"] for r in blur_rows),
+        case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']} frames",
+        ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+        library_ms=rep["library_ms"],
+    ))
     return {"kernels": out}
 
 
@@ -476,7 +664,9 @@ def main() -> int:
     info = device_phase()
     build = build_phase()
     kernel_rows = kernels_phase(device)
+    blur_rows = blur_phase(device)
     main_run = main_path_phase(device)
+    uv_run = uv_main_path_phase(device)
     profile_run = profile_phase(device)
     if any(m.startswith("jax") or m == "animal_vision_tpu" or m.startswith("animal_vision_tpu.")
            for m in sys.modules):
@@ -484,11 +674,14 @@ def main() -> int:
     log(f"[main] 20-species harmonic mean at {MAIN_HW[0]}x{MAIN_HW[1]}, batch of {BATCH} on the device: "
         f"{main_run['hm_fps']:.1f} fps; through visualize (host round trip): "
         f"{main_run['hm_visualize_fps']:.1f} fps; card: {info['card']}")
-    kernels = summary(kernel_rows, main_run["launches"])
+    log(f"[main] {len(uv_run['species'])}-UV-species harmonic mean at {MAIN_HW[0]}x{MAIN_HW[1]}, batch of {BATCH} "
+        f"on the device: {uv_run['hm_fps']:.1f} fps; through visualize: {uv_run['hm_visualize_fps']:.1f} fps")
+    launches = {**main_run["launches"], "blur_uv": uv_run["launches"]["blur_uv"]}
+    kernels = summary(kernel_rows, blur_rows, launches)
     REPORT.parent.mkdir(exist_ok=True)
-    REPORT.write_text(json.dumps(dict(device=info, build=build, kernel_cases=kernel_rows,
-                                      main_path=main_run, profile=profile_run, kernels=kernels["kernels"],
-                                      seconds=time.perf_counter() - t0), indent=1))
+    REPORT.write_text(json.dumps(dict(device=info, build=build, kernel_cases=kernel_rows, blur_cases=blur_rows,
+                                      main_path=main_run, uv_main_path=uv_run, profile=profile_run,
+                                      kernels=kernels["kernels"], seconds=time.perf_counter() - t0), indent=1))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(info["card"])
     print(json.dumps(kernels))

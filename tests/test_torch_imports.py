@@ -43,6 +43,12 @@ def test_port_imports_no_jax_package_or_cv2():
         "animal_vision_tpu_torch.core.linalg", "animal_vision_tpu_torch.ops._build",
         "animal_vision_tpu_torch.ops.fused_nonuv", "animal_vision_tpu_torch.species.base",
         "animal_vision_tpu_torch.species.nonuv",
+        "animal_vision_tpu_torch.core.stats", "animal_vision_tpu_torch.core.gradients",
+        "animal_vision_tpu_torch.core.tables", "animal_vision_tpu_torch.ops.fused_blur",
+        "animal_vision_tpu_torch.spectral.bands", "animal_vision_tpu_torch.spectral.classic",
+        "animal_vision_tpu_torch.spectral.mappers", "animal_vision_tpu_torch.species.uv.common",
+        "animal_vision_tpu_torch.species.uv.honeybee", "animal_vision_tpu_torch.species.uv.goldfish",
+        "animal_vision_tpu_torch.species.uv.reindeer", "animal_vision_tpu_torch.species.uv.kestrel",
     }
     assert expected <= set(report["modules"])
 

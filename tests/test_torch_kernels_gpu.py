@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from animal_vision_tpu_torch.core import color
+from animal_vision_tpu_torch.core import blur, color
+from animal_vision_tpu_torch.ops import fused_blur as B
 from animal_vision_tpu_torch.ops import fused_nonuv as F
-from animal_vision_tpu_torch.species import NON_UV_NAMES, get_animal
+from animal_vision_tpu_torch.species import NON_UV_NAMES, PORTED_UV_NAMES, get_animal
 from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS, Cat
 
 pytestmark = pytest.mark.gpu
@@ -35,8 +36,9 @@ def cuda():
 def no_plain_on_cuda(monkeypatch):
     """Plain versions that raise on a CUDA tensor; returns the originals."""
     originals = {}
-    for name in ("iso_u8_plain", "streak_u8_plain", "pointwise_u8_plain"):
-        fn = getattr(F, name)
+    for mod, name in ((F, "iso_u8_plain"), (F, "streak_u8_plain"), (F, "pointwise_u8_plain"),
+                      (B, "blur_uv_plain")):
+        fn = getattr(mod, name)
         originals[name] = fn
 
         def guarded(img, *args, _fn=fn, _name=name, **kwargs):
@@ -44,7 +46,7 @@ def no_plain_on_cuda(monkeypatch):
                 raise AssertionError(f"{_name} reached with a CUDA tensor")
             return _fn(img, *args, **kwargs)
 
-        monkeypatch.setattr(F, name, guarded)
+        monkeypatch.setattr(mod, name, guarded)
     return originals
 
 
@@ -127,4 +129,43 @@ def test_species_on_card_vs_cpu(cuda, no_plain_on_cuda, name):
     base_g, out_g = get_animal(name, cuda).visualize(frame)
     base_c, out_c = get_animal(name, "cpu").visualize(frame)
     assert _lsb(torch.from_numpy(out_g), torch.from_numpy(out_c)) <= 1
+    assert _lsb(torch.from_numpy(base_g), torch.from_numpy(base_c)) <= 1
+
+
+@pytest.mark.parametrize("ksize", [3, 7, 19, 37])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 1, 1), (1, 1, 50), (1, 50, 1), (3, 9, 5), (1, 70, 130)])
+def test_blur_uv_kernel(cuda, no_plain_on_cuda, shape, channels, ksize):
+    """Within 1e-5 of the plain version on [0, 1] data, from 1x1 frames and
+    frames narrower than the kernel to several tiles per frame."""
+    x = torch.from_numpy(np.random.default_rng(ksize).random((*shape, channels), dtype=np.float32))
+    sigma = (ksize - 1) / 6  # uv_ksize(sigma) == ksize
+    assert blur.uv_ksize(sigma) == ksize
+    taps = blur.uv_taps(sigma, "cpu")
+    before = B.LAUNCHES["blur_uv"]
+    got = B.blur_uv(x.to(cuda), taps.to(cuda))
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["blur_uv"] == before + 1
+    want = no_plain_on_cuda["blur_uv_plain"](x, taps)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+
+
+def test_blur_uv_raises_above_shared_memory(cuda):
+    """A kernel too wide for the card's shared memory raises and names its
+    size; nothing falls back to the plain version."""
+    ksize = 201
+    taps = torch.full((ksize,), 1.0 / ksize, device=cuda)
+    with pytest.raises(ValueError, match=f"ksize {ksize}"):
+        B.blur_uv(torch.zeros(1, 8, 8, 3, device=cuda), taps)
+
+
+@pytest.mark.parametrize("name", PORTED_UV_NAMES)
+def test_uv_species_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, name):
+    frame = _frames((1, 72, 130), "cpu", seed=6)[0].numpy()
+    before = B.LAUNCHES["blur_uv"]
+    base_g, out_g = get_animal(name, cuda).visualize(frame)
+    assert B.LAUNCHES["blur_uv"] > before
+    base_c, out_c = get_animal(name, "cpu").visualize(frame)
+    assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0
     assert _lsb(torch.from_numpy(base_g), torch.from_numpy(base_c)) <= 1
