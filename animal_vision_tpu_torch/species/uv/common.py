@@ -13,10 +13,13 @@ and the (B, n) band weights are two per-frame products with a relu between
 linearization is kept: the converter linearizes the already-linear
 baseline.
 
+``hsi_provider`` (``models/providers.py``, MST++) replaces the analytic
+upsampler: the model runs on the downsampled frame and the band columns
+contract its cube per frame.
+
 Not ported: the JAX package's padded-bucket programs, which exist to bound
 XLA recompiles and give the exact program's outputs; the port runs every
-shape as it is. ``hsi_provider`` (a model in place of the analytic
-upsampler) waits for the MST++ slice.
+shape as it is.
 """
 
 from __future__ import annotations
@@ -47,29 +50,19 @@ def band_weight_columns(lambdas: np.ndarray, band_specs) -> np.ndarray:
     return np.stack(cols, axis=1)
 
 
-class AnalyticHSI:
-    """``hsi_provider`` is None, and setting it to anything else raises:
-    model-based upsampling (MST++) is not ported yet, so the analytic
-    upsampler always runs."""
-
-    @property
-    def hsi_provider(self):
-        return None
-
-    @hsi_provider.setter
-    def hsi_provider(self, provider) -> None:
-        if provider is not None:
-            raise NotImplementedError("hsi_provider (MST++) is not ported yet; the analytic upsampler runs")
-
-
-class UVAnimal(AnalyticHSI, Animal):
+class UVAnimal(Animal):
     """Base for UV species following the shared skeleton. Subclasses set
     ``lambdas``, ``hsi_scale``, ``panorama_scale``, declare ``_band_specs``
-    ((lo, hi) nm pairs) and implement ``_render``."""
+    ((lo, hi) nm pairs) and implement ``_render``.
+
+    ``hsi_provider`` (optional, ``use_hsi_provider``) replaces the analytic
+    upsampler: a callable ``(frames, plain) -> cube`` from the frames the
+    converter would get to an (..., h, w, len(lambdas)) cube."""
 
     lambdas: np.ndarray = np.linspace(300.0, 700.0, 81, dtype=np.float32)
     hsi_scale: float = 0.25
     panorama_scale: float = 1.0
+    hsi_provider = None
 
     def _band_specs(self) -> list[tuple[float, float]]:
         raise NotImplementedError
@@ -84,6 +77,14 @@ class UVAnimal(AnalyticHSI, Animal):
         """A small float32 constant on this animal's device, made once."""
         return device_table(a, self.device)
 
+    def use_hsi_provider(self, provider, lambdas: np.ndarray | None = None) -> "UVAnimal":
+        """Swap in a model-based RGB -> HSI provider (and its band grid)."""
+        self.hsi_provider = provider
+        if lambdas is not None:
+            self.lambdas = np.asarray(lambdas)
+        self._programs.clear()
+        return self
+
     def _small_dims(self, h: int, w: int) -> tuple[int, int]:
         return (
             max(1, int(round(h * self.hsi_scale))),
@@ -96,8 +97,11 @@ class UVAnimal(AnalyticHSI, Animal):
         spectral speed path's resizes, or None at full size)."""
         g = self._table(classic.lobe_matrix(tuple(float(v) for v in np.asarray(self.lambdas))))
         cols = self._table(band_weight_columns(self.lambdas, self._band_specs()))
+        provider = self.hsi_provider
 
         def maps_of(x):
+            if provider is not None:
+                return linalg.frame_matmul(provider(x, plain=plain), cols)
             return _integrate_maps(color.srgb_to_linear(x), g, cols)
 
         def fn(image):

@@ -9,7 +9,9 @@ is the input frame. The illuminant and the cone curves fold with the lobe
 matrix into one (3, 3) matrix, so the catches come straight from the
 linearized frame; the converter gets sRGB [0,1] here (one linearization,
 unlike the other UV species). The three catch maps blur as the three
-channels of one tensor.
+channels of one tensor. ``hsi_provider`` (MST++, ``models/providers.py``)
+replaces the analytic cube: it runs on the full-size frame and the catch
+columns contract its cube.
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ import torch
 
 from animal_vision_tpu_torch.core import blur, color, geometry, linalg
 from animal_vision_tpu_torch.species.base import Animal
-from animal_vision_tpu_torch.species.uv.common import AnalyticHSI
 from animal_vision_tpu_torch.spectral import bands as sbands
 from animal_vision_tpu_torch.spectral import classic, mappers
 
@@ -39,7 +40,7 @@ def honeybee_cone_curves(lambdas: np.ndarray) -> list[np.ndarray]:
     return out
 
 
-class HoneyBee(AnalyticHSI, Animal):
+class HoneyBee(Animal):
     MAPPING_MODES = ("falsecolor", "custom_matrix", "opponent", "uv_purple_yellow", "falsecolor_uv_mixed")
 
     def __init__(
@@ -87,6 +88,8 @@ class HoneyBee(AnalyticHSI, Animal):
     def _build_program(self, shape, dtype, kernels):
         h, w = int(shape[0]), int(shape[1])
         m = self._table(classic.fused_band_matrix(self.lambdas, self._catch_columns()))  # (3, 3)
+        cols = self._table(self._catch_columns())  # (B, 3)
+        provider = self.hsi_provider
         small = None
         if self.hsi_downsample and 0.05 <= self.hsi_scale < 1.0:
             small = (max(1, int(round(h * self.hsi_scale))), max(1, int(round(w * self.hsi_scale))))
@@ -94,6 +97,8 @@ class HoneyBee(AnalyticHSI, Animal):
         plain = not kernels
 
         def catches(img01):
+            if provider is not None:
+                return linalg.frame_matmul(provider(img01, plain=plain), cols)
             if small is None:
                 return linalg.frame_matmul(color.srgb_to_linear(img01), m)
             lin = color.srgb_to_linear(geometry.resize(img01, small, "area"))

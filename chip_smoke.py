@@ -14,9 +14,14 @@ raises on failure:
    on the card at 1080x1920 and 721x1283: the three non-UV kernels on two
    random frames plus a frame of 0/1 values (so both branches of the
    per-frame scale run), <= 1 LSB; the UV blur on 3 float32 frames in
-   [0, 1] with 1 or 3 channels and ksize 3..37, <= 1e-5; then each kernel's
-   time (CUDA events), its plain version's time, its bound, and for the UV
-   blur a library reference (reflect pad + two depthwise convolutions);
+   [0, 1] with 1 or 3 channels and ksize 3..37, <= 1e-5; the four MST++
+   kernels at the three levels of a 1080x1920 frame and of 4 frames of
+   272x480 (kestrel's and goldfish's 0.25-scale operating point), random
+   weights of scale 0.2: conv and up_fuse <= 1e-4, stats <= 1e-5 of max |G|,
+   apply <= 5e-4; then each kernel's time (CUDA events), its plain
+   version's time, its bound, and a library reference for the UV blur
+   (reflect pad + two depthwise convolutions) and the MST++ convolution
+   (``F.conv2d`` on channels-last tensors);
 4. main path: ``get_animal(name).visualize(frame)`` and
    ``visualize_batch_device`` (4 frames already on the card) at 1080p, first
    for the 20 non-UV species, then for the ported UV species, with the
@@ -24,10 +29,16 @@ raises on failure:
    each non-UV species against its plain composition on the card (<= 1 LSB)
    and against the CPU path on a small frame (<= 1 LSB), each UV species
    the same at >= 40 dB PSNR with its baseline within 1 LSB; then fps per
-   species and each group's harmonic mean;
+   species and each group's harmonic mean; then MST++ with the shipped
+   weights: one 1080p forward, kestrel and goldfish with ``attach_mst``
+   through both entry points and honeybee with the provider on a 1080p
+   frame, counters around the run (14 conv, 15 stats, 15 apply, 6 up_fuse
+   launches per forward), each against its plain version on the card
+   (forward < 5e-4, species >= 40 dB, baselines <= 1 LSB), ms and fps;
 5. profile: ``torch.profiler`` device time by name beside the host-clock
    time for one non-UV species per kernel, the cat and the UV species,
-   through each entry point;
+   through each entry point, the 1080p MST++ forward and kestrel with
+   MST++;
 6. summary: one JSON line with each kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -70,17 +81,38 @@ UV_MIN_DB = 40.0
 # one non-UV species per kernel, the cat's products, and the UV species
 PROFILE_SPECIES = ("dog", "deer", "rat", "cat", "honeybee", "reindeer", "goldfish", "kestrel")
 PROFILE_REPS = 5
+# MST++: (padded frame, frames per call) of the two operating points
+MST_POINTS = {"1080p": ((1080, 1920), 1), "272x480": ((272, 480), BATCH)}
+MST_KERNEL_REPS = 10
+MST_PLAIN_REPS = 2
+MST_TOL = {"conv_kernel": 1e-4, "up_fuse_kernel": 1e-4, "msab_apply_kernel": 5e-4}
+MST_STATS_REL_TOL = 1e-5  # of max |G|
+MST_FORWARD_TOL = 5e-4
+MST_FORWARD_REPS = 10
+MST_SPECIES_REPS = 5
+MST_PER_FORWARD = {"conv_kernel": 14, "attn_stats_kernel": 15, "msab_apply_kernel": 15, "up_fuse_kernel": 6}
+# the 1080p case of each MST++ kernel that the summary line reports
+MST_REPRESENTATIVE = {"conv_kernel": "31->31 k3", "attn_stats_kernel": "C=31", "msab_apply_kernel": "C=31",
+                      "up_fuse_kernel": "62->31"}
 SOURCES = {
     "iso_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
     "streak_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
     "pointwise_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
     "blur_uv": "animal_vision_tpu_torch/csrc/fused_blur.cu",
+    "conv_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
+    "attn_stats_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
+    "msab_apply_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
+    "up_fuse_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
 }
 REPLACES = {
     "iso_u8": "animal_vision_tpu/ops/fused_nonuv.py:199",
     "streak_u8": "animal_vision_tpu/ops/fused_nonuv.py:335",
     "pointwise_u8": "animal_vision_tpu/ops/fused_nonuv.py:530",
     "blur_uv": "animal_vision_tpu/ops/fused_blur.py:68",
+    "conv_kernel": "animal_vision_tpu/ops/fused_msab.py:636",
+    "attn_stats_kernel": "animal_vision_tpu/ops/fused_msab.py:192",
+    "msab_apply_kernel": "animal_vision_tpu/ops/fused_msab.py:293",
+    "up_fuse_kernel": "animal_vision_tpu/ops/fused_msab.py:848",
 }
 REPORT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_report.json"
 
@@ -134,26 +166,31 @@ def psnr_db(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def reset_counters() -> None:
     from animal_vision_tpu_torch.ops import fused_blur as B
+    from animal_vision_tpu_torch.ops import fused_msab as M
     from animal_vision_tpu_torch.ops import fused_nonuv as F
 
     F.reset_launches()
     B.reset_launches()
+    M.reset_launches()
 
 
 def counters() -> dict:
     from animal_vision_tpu_torch.ops import fused_blur as B
+    from animal_vision_tpu_torch.ops import fused_msab as M
     from animal_vision_tpu_torch.ops import fused_nonuv as F
 
-    return {**F.LAUNCHES, **B.LAUNCHES}
+    return {**F.LAUNCHES, **B.LAUNCHES, **M.LAUNCHES}
 
 
 @contextlib.contextmanager
 def plain_forbidden_on_cuda():
     """Make every plain kernel version raise if a CUDA tensor reaches it."""
     from animal_vision_tpu_torch.ops import fused_blur as B
+    from animal_vision_tpu_torch.ops import fused_msab as M
     from animal_vision_tpu_torch.ops import fused_nonuv as F
 
-    names = ((F, "iso_u8_plain"), (F, "streak_u8_plain"), (F, "pointwise_u8_plain"), (B, "blur_uv_plain"))
+    names = ((F, "iso_u8_plain"), (F, "streak_u8_plain"), (F, "pointwise_u8_plain"), (B, "blur_uv_plain"),
+             (M, "conv_plain"), (M, "attn_stats_plain"), (M, "msab_apply_plain"), (M, "up_fuse_plain"))
     saved = {n: getattr(mod, n) for mod, n in names}
 
     def guard(name, fn):
@@ -395,6 +432,156 @@ def blur_phase(device: torch.device, shapes=SHAPES, ksizes=BLUR_KSIZES, channels
     return rows
 
 
+def mst_kernel_cases(hw: tuple[int, int], n: int, device: torch.device, gen) -> list[dict]:
+    """The MST++ kernel calls of one forward at a padded frame ``hw`` with
+    ``n`` frames per call: inputs of scale 0.5 and weights of scale 0.2
+    (``torch.randn`` on the card), with the bytes and float32 operations
+    each call needs (a multiply-add is 2; each input read once, each output
+    written once)."""
+    import torch.nn.functional as nnf
+
+    from animal_vision_tpu_torch.ops import fused_msab as M
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    h, w = hw
+    levels = [(h, w, 31), (h // 2, w // 2, 62), (h // 4, w // 4, 124)]
+    cases = []
+
+    def conv(name, lvl, cin, cout, k, residual):
+        hh, ww, _ = levels[lvl]
+        x, wt = randn(n, hh, ww, cin, scale=0.5), randn(k, k, cin, cout, scale=0.2)
+        ho, wo = M.conv_out_hw(hh, ww, k)
+        res = randn(n, ho, wo, cout, scale=0.5) if residual else None
+        x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        stride = 1 if k == 3 else 2
+
+        def library():
+            y = nnf.conv2d(x_cl, w_cl, stride=stride, padding=1)
+            return y if res is None else y + res.permute(0, 3, 1, 2)
+
+        out_px = n * ho * wo
+        cases.append(dict(
+            kernel="conv_kernel", case=name, run=lambda: M.conv(x, wt, res), plain=lambda: M.conv_plain(x, wt, res),
+            library=library, library_out=lambda y: y.permute(0, 2, 3, 1),
+            bytes=4 * (n * hh * ww * cin + out_px * cout * (2 if residual else 1) + wt.numel()),
+            ops=out_px * cout * (2 * k * k * cin + (1 if residual else 0)),
+        ))
+
+    def stats(lvl):
+        hh, ww, c = levels[lvl]
+        x, wq, wk = randn(n, hh, ww, c, scale=0.5), randn(c, c, scale=0.2), randn(c, c, scale=0.2)
+        px = n * hh * ww
+        cases.append(dict(
+            kernel="attn_stats_kernel", case=f"C={c}", run=lambda: M.attn_stats(x, wq, wk, c // 31),
+            plain=lambda: M.attn_stats_plain(x, wq, wk, c // 31), library=None,
+            bytes=4 * (px * c + 2 * c * c + n * (c * 31 + 2 * c)),
+            ops=px * (2 * 2 * c * c + 2 * c * 31 + 2 * 2 * c),
+        ))
+
+    def apply(lvl):
+        hh, ww, c = levels[lvl]
+        x, m = randn(n, hh, ww, c, scale=0.5), randn(n, c, c, scale=0.2)
+
+        def wt(*shape):
+            return randn(*shape, scale=0.2)
+
+        blk = M.MsabWeights(c // 31, wt(c, c), wt(c, c), wt(c, c), 1.0 + wt(c // 31), wt(c, c), wt(c), wt(3, 3, c),
+                            wt(3, 3, c), 1.0 + wt(c), wt(c), wt(c, 4 * c), wt(3, 3, 4 * c), wt(4 * c, c))
+        px = n * hh * ww
+        weights = sum(t.numel() for t in blk[1:]) - 3 * c * c - c // 31  # wq, wk, wproj, rescale are unused
+        cases.append(dict(
+            kernel="msab_apply_kernel", case=f"C={c}", run=lambda: M.msab_apply(x, m, blk),
+            plain=lambda: M.msab_apply_plain(x, m, blk), library=None,
+            bytes=4 * (2 * px * c + n * c * c + weights),
+            # x Wv, x M, W0, W4 products; the three depthwise 3x3s; GELU (1
+            # each, 3 hidden-size passes of them), LayerNorm (about 8 per
+            # channel) and the residual adds
+            ops=px * (2 * c * c * 2 + 2 * 4 * c * c * 2 + 2 * 9 * (2 * c + 4 * c) + (c + 2 * 4 * c) + 8 * c + 4 * c),
+        ))
+
+    def up_fuse(lvl):
+        hh, ww, c = levels[lvl]
+        half = c // 2
+        fea, skip = randn(n, hh, ww, c, scale=0.5), randn(n, 2 * hh, 2 * ww, half, scale=0.5)
+        wup, bup, fuse = randn(c, 2, 2, half, scale=0.2), randn(2, 2, half, scale=0.2), randn(c, half, scale=0.2)
+        out_px = n * 4 * hh * ww
+        cases.append(dict(
+            kernel="up_fuse_kernel", case=f"{c}->{half}", run=lambda: M.up_fuse(fea, skip, wup, bup, fuse),
+            plain=lambda: M.up_fuse_plain(fea, skip, wup, bup, fuse), library=None,
+            bytes=4 * (n * hh * ww * c + 2 * out_px * half + wup.numel() + bup.numel() + fuse.numel()),
+            ops=out_px * half * (2 * c + 1) + out_px * 2 * c * half,
+        ))
+
+    conv("3->31 k3 (conv_in)", 0, 3, 31, 3, False)
+    conv("31->31 k3", 0, 31, 31, 3, False)
+    conv("31->31 k3 + residual", 0, 31, 31, 3, True)
+    conv("31->62 k4 s2", 0, 31, 62, 4, False)
+    conv("62->124 k4 s2", 1, 62, 124, 4, False)
+    for lvl in range(3):
+        stats(lvl)
+        apply(lvl)
+    up_fuse(2)
+    up_fuse(1)
+    return cases
+
+
+def mst_error(kernel: str, got, want) -> tuple[float, float]:
+    """(max abs error, the figure held to the kernel's tolerance): for the
+    stats, the error of each output relative to its largest magnitude."""
+    if kernel == "attn_stats_kernel":
+        abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        return abs_err, max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(got, want))
+    err = (got - want).abs().max().item()
+    return err, err
+
+
+def mst_kernels_phase(device: torch.device, points=MST_POINTS, reps=MST_KERNEL_REPS,
+                      plain_reps=MST_PLAIN_REPS) -> list[dict]:
+    """Each MST++ kernel against its plain version on the same inputs; its
+    time, the plain version's, its bound and, for the convolution, the
+    library call's."""
+    from animal_vision_tpu_torch.ops import fused_msab as M
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    rows = []
+    for point, (hw, n) in points.items():
+        for case in mst_kernel_cases(hw, n, device, gen):
+            kernel = case["kernel"]
+            got, want = case["run"](), case["plain"]()
+            sync(device)
+            abs_err, err = mst_error(kernel, got, want)
+            tol = MST_STATS_REL_TOL if kernel == "attn_stats_kernel" else MST_TOL[kernel]
+            if not err <= tol:
+                raise AssertionError(f"{kernel} {case['case']} at {point}: error {err} from its plain version "
+                                     f"(tolerance {tol})")
+            before = M.LAUNCHES[kernel]
+            ms = time_ms(case["run"], reps, device)
+            if device.type == "cuda" and M.LAUNCHES[kernel] == before:
+                raise AssertionError(f"{kernel} did not launch")
+            plain_ms = time_ms(case["plain"], plain_reps, device, warmup=1)
+            library_ms = library_err = None
+            if case["library"] is not None:
+                library_err = (case["library_out"](case["library"]()) - want).abs().max().item()
+                library_ms = time_ms(case["library"], reps, device)
+            bound_s = max(case["bytes"] / HBM_BYTES_PER_S, case["ops"] / F32_OPS_PER_S)
+            row = dict(
+                kernel=kernel, case=case["case"], point=point, h=hw[0], w=hw[1], frames=n, max_abs_err=abs_err,
+                err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=library_err,
+                bound_ms=bound_s * 1e3, bytes=case["bytes"], ops=case["ops"],
+                bound_by="bytes" if case["bytes"] / HBM_BYTES_PER_S >= case["ops"] / F32_OPS_PER_S else "operations",
+            )
+            rows.append(row)
+            lib = "" if library_ms is None else f", library {library_ms:.4f} ms (err {library_err:.2g})"
+            log(f"[kernel] {kernel:<17} {case['case']:<22} {point:<7} x{n}: err {err:.3g} (abs {abs_err:.3g}), "
+                f"{ms:.4f} ms (plain {plain_ms:.3f} ms{lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                f"{row['bound_ms'] / ms:.1%} of bound)")
+            del case, got, want
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -558,6 +745,89 @@ def uv_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=UV_RE
     return dict(species=results, launches=launches, hm_fps=hm, hm_visualize_fps=hm_vis)
 
 
+def mst_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MST_FORWARD_REPS,
+                        species_reps=MST_SPECIES_REPS) -> dict:
+    """MST++ with the shipped weights through the entry points a user calls:
+    ``load_shipped(device)`` on one 1080p frame; kestrel and goldfish with
+    ``attach_mst`` through ``visualize`` and ``visualize_batch_device``;
+    honeybee with ``hsi_provider`` through ``visualize``. The counters are
+    set to 0 before that run and read after it; each item is one forward.
+    Then each against its plain version on the card, and the times."""
+    from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
+    from animal_vision_tpu_torch.models.providers import attach_mst, make_mst_hsi_provider
+    from animal_vision_tpu_torch.species.uv.goldfish import Goldfish
+    from animal_vision_tpu_torch.species.uv.honeybee import HoneyBee
+    from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
+
+    rng = np.random.default_rng(SEED + 4)
+    h, w = hw
+    host = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    frames = torch.from_numpy(host).to(device)
+    x = (frames[:1].to(torch.float32) / 255.0).contiguous()
+    model = load_shipped(device)
+    animals = {"kestrel": attach_mst(Kestrel(device), model), "goldfish": attach_mst(Goldfish(device), model),
+               "honeybee": HoneyBee(device, hsi_provider=make_mst_hsi_provider(model))}
+    sync(device)
+
+    items = {"forward": lambda: model(x)}
+    for name in ("kestrel", "goldfish"):
+        items[f"{name} visualize"] = lambda a=animals[name]: a.visualize(host[0])
+        items[f"{name} batch{batch}"] = lambda a=animals[name]: a.visualize_batch_device(frames)
+    items["honeybee visualize"] = lambda: animals["honeybee"].visualize(host[0])
+    outputs, per_item = {}, {}
+    with torch.no_grad(), plain_forbidden_on_cuda():
+        reset_counters()
+        for label, fn in items.items():
+            before = counters()
+            outputs[label] = fn()
+            per_item[label] = {k: v - before[k] for k, v in counters().items() if k in MST_PER_FORWARD}
+        sync(device)
+        launches = counters()
+    log(f"[main] launches over the MST++ main-path run ({len(items)} forwards): "
+        f"{ {k: launches[k] for k in MST_PER_FORWARD} }")
+    for label, moved in per_item.items():
+        if device.type == "cuda" and moved != MST_PER_FORWARD:
+            raise AssertionError(f"{label}: expected {MST_PER_FORWARD} MST++ launches per forward, counted {moved}")
+
+    with torch.no_grad():
+        got = outputs["forward"]
+        want = model(x, plain=True)
+        err = (got - want).abs().max().item()
+        if not (got.shape == (1, h, w, 31) and torch.isfinite(got).all().item() and err < MST_FORWARD_TOL):
+            raise AssertionError(f"MST++ forward at {h}x{w}: shape {tuple(got.shape)}, {err} from the plain forward")
+        forward = wall_ms(lambda: (model(x), sync(device)), reps)
+        plain_forward = wall_ms(lambda: (model(x, plain=True), sync(device)), 1)
+    log(f"[main] MST++ {h}x{w} forward: max {err:.3g} from the plain forward; median {forward['median']:.2f} ms "
+        f"(p90 {forward['p90']:.2f}), plain {plain_forward['median']:.1f} ms")
+    result = dict(forward_max_abs_err=err, forward_ms=forward, plain_forward_ms=plain_forward, launches=launches,
+                  per_forward=per_item, species={})
+
+    for name, animal in animals.items():
+        base1, out1 = outputs[f"{name} visualize"]
+        plain_base, plain = animal.plain_transform((h, w, 3), np.uint8)(frames if name != "honeybee" else frames[:1])
+        db = psnr_db(torch.from_numpy(out1), plain[0])
+        base_lsb = max_lsb(torch.from_numpy(base1).to(device), plain_base[0])
+        row = dict(psnr_plain_db=db, baseline_max_lsb_plain=base_lsb)
+        if name != "honeybee":
+            base_b, out_b = outputs[f"{name} batch{batch}"]
+            db = min(db, psnr_db(out_b, plain))
+            base_lsb = max(base_lsb, max_lsb(base_b, plain_base))
+            bat = wall_ms(lambda a=animal: (a.visualize_batch_device(frames), sync(device)), species_reps)
+            row.update(psnr_plain_db=db, baseline_max_lsb_plain=base_lsb, batch_ms=bat,
+                       batch_fps=batch * 1e3 / bat["median"],
+                       max_lsb_batch_vs_frame=max_lsb(out_b[0], torch.from_numpy(out1).to(device)))
+        if db < UV_MIN_DB or base_lsb > TOL_LSB or out1.shape != (h, w, 3):
+            raise AssertionError(f"{name} with MST++: {db:.2f} dB from the plain path (baseline {base_lsb} LSB)")
+        vis = wall_ms(lambda a=animal: a.visualize(host[0]), species_reps)
+        row.update(visualize_ms=vis, visualize_fps=1e3 / vis["median"])
+        result["species"][name] = row
+        bat = (f", batch of {batch} on device {row['batch_fps']:.2f} fps (median {row['batch_ms']['median']:.1f} ms)"
+               if "batch_fps" in row else "")
+        log(f"[main] {name:<9} + MST++ {row['psnr_plain_db']:.2f} dB vs plain (baseline {base_lsb} LSB); visualize "
+            f"{row['visualize_fps']:.2f} fps (median {vis['median']:.1f} ms){bat}")
+    return result
+
+
 def wall_ms(fn, reps: int) -> dict:
     """Host-clock milliseconds of ``reps`` calls, each ending synchronized:
     median and p90 (the highest percentile with 10 samples beyond it at 100
@@ -581,22 +851,30 @@ def profile_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, names=PROFILE_S
     """Where the time of one species goes: ``torch.profiler`` device time by
     name (kernels, copies, reductions) over a few calls of each entry point,
     beside the host-clock time of the same window. The profiler's own cost
-    is in the wall time."""
+    is in the wall time. Then the same for the 1080p MST++ forward and for
+    kestrel with MST++."""
     from torch.profiler import ProfilerActivity, profile
 
+    from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
+    from animal_vision_tpu_torch.models.providers import attach_mst
     from animal_vision_tpu_torch.species import get_animal
+    from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
 
     rng = np.random.default_rng(SEED + 2)
     host = rng.integers(0, 256, (batch, *hw, 3), dtype=np.uint8)
     frames = torch.from_numpy(host).to(device)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    model = load_shipped(device)
+    kestrel = attach_mst(Kestrel(device), model)
+    x = (frames[:1].to(torch.float32) / 255.0).contiguous()
+    groups = [(name, {"visualize": lambda a=get_animal(name, device): a.visualize(host[0]),
+                      f"batch{batch}": lambda a=get_animal(name, device): a.visualize_batch_device(frames)})
+              for name in names]
+    groups.append(("mst++", {"forward": lambda: model(x)}))
+    groups.append(("kestrel+mst", {"visualize": lambda: kestrel.visualize(host[0]),
+                                   f"batch{batch}": lambda: kestrel.visualize_batch_device(frames)}))
     out = {}
-    for name in names:
-        animal = get_animal(name, device)
-        entries = {
-            "visualize": lambda a=animal: a.visualize(host[0]),
-            f"batch{batch}": lambda a=animal: a.visualize_batch_device(frames),
-        }
+    for name, entries in groups:
         for label, fn in entries.items():
             fn()
             sync(device)
@@ -619,12 +897,12 @@ def profile_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, names=PROFILE_S
             busy_us = sum(by_name.values())
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
             out[f"{name} {label}"] = dict(wall_us=wall_us, device_us=busy_us, device_by_name=by_name)
-            log(f"[profile] {name:<5} {label:<9} wall {wall_us:9.1f} us/call, device busy {busy_us:9.1f} us "
+            log(f"[profile] {name:<11} {label:<9} wall {wall_us:9.1f} us/call, device busy {busy_us:9.1f} us "
                 f"({busy_us / wall_us:.1%}): " + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
     return out
 
 
-def summary(kernel_rows: list[dict], blur_rows: list[dict], launches: dict) -> dict:
+def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], launches: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
     plain time, bound and library time of its heaviest main-path case at
     1080p. Launches come from the main-path run of the kernel's species."""
@@ -649,6 +927,17 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], launches: dict) -> d
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
         library_ms=rep["library_ms"],
     ))
+    for kernel, case in MST_REPRESENTATIVE.items():
+        rows = [r for r in mst_rows if r["kernel"] == kernel]
+        rep = next(r for r in rows if r["case"] == case and r["point"] == "1080p")
+        out.append(dict(
+            name=kernel, route="cuda", source=SOURCES[kernel], replaces=REPLACES[kernel],
+            launches=launches[kernel], max_abs_err=max(r["max_abs_err"] for r in rows),
+            case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']}",
+            ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+            library_ms=rep["library_ms"],
+            **({"max_rel_err": max(r["err"] for r in rows)} if kernel == "attn_stats_kernel" else {}),
+        ))
     return {"kernels": out}
 
 
@@ -665,8 +954,10 @@ def main() -> int:
     build = build_phase()
     kernel_rows = kernels_phase(device)
     blur_rows = blur_phase(device)
+    mst_rows = mst_kernels_phase(device)
     main_run = main_path_phase(device)
     uv_run = uv_main_path_phase(device)
+    mst_run = mst_main_path_phase(device)
     profile_run = profile_phase(device)
     if any(m.startswith("jax") or m == "animal_vision_tpu" or m.startswith("animal_vision_tpu.")
            for m in sys.modules):
@@ -676,11 +967,13 @@ def main() -> int:
         f"{main_run['hm_visualize_fps']:.1f} fps; card: {info['card']}")
     log(f"[main] {len(uv_run['species'])}-UV-species harmonic mean at {MAIN_HW[0]}x{MAIN_HW[1]}, batch of {BATCH} "
         f"on the device: {uv_run['hm_fps']:.1f} fps; through visualize: {uv_run['hm_visualize_fps']:.1f} fps")
-    launches = {**main_run["launches"], "blur_uv": uv_run["launches"]["blur_uv"]}
-    kernels = summary(kernel_rows, blur_rows, launches)
+    launches = {**main_run["launches"], "blur_uv": uv_run["launches"]["blur_uv"],
+                **{k: mst_run["launches"][k] for k in MST_PER_FORWARD}}
+    kernels = summary(kernel_rows, blur_rows, mst_rows, launches)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(device=info, build=build, kernel_cases=kernel_rows, blur_cases=blur_rows,
-                                      main_path=main_run, uv_main_path=uv_run, profile=profile_run,
+                                      mst_cases=mst_rows, main_path=main_run, uv_main_path=uv_run,
+                                      mst_main_path=mst_run, profile=profile_run,
                                       kernels=kernels["kernels"], seconds=time.perf_counter() - t0), indent=1))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(info["card"])

@@ -49,6 +49,8 @@ def test_port_imports_no_jax_package_or_cv2():
         "animal_vision_tpu_torch.spectral.mappers", "animal_vision_tpu_torch.species.uv.common",
         "animal_vision_tpu_torch.species.uv.honeybee", "animal_vision_tpu_torch.species.uv.goldfish",
         "animal_vision_tpu_torch.species.uv.reindeer", "animal_vision_tpu_torch.species.uv.kestrel",
+        "animal_vision_tpu_torch.ops.fused_msab", "animal_vision_tpu_torch.models.mst_plus_plus",
+        "animal_vision_tpu_torch.models.providers",
     }
     assert expected <= set(report["modules"])
 

@@ -13,10 +13,15 @@ import pytest
 import torch
 
 from animal_vision_tpu_torch.core import blur, color
+from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
+from animal_vision_tpu_torch.models.providers import attach_mst
 from animal_vision_tpu_torch.ops import fused_blur as B
+from animal_vision_tpu_torch.ops import fused_msab as M
 from animal_vision_tpu_torch.ops import fused_nonuv as F
 from animal_vision_tpu_torch.species import NON_UV_NAMES, PORTED_UV_NAMES, get_animal
 from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS, Cat
+from animal_vision_tpu_torch.species.uv.goldfish import Goldfish
+from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
 
 pytestmark = pytest.mark.gpu
 
@@ -37,7 +42,8 @@ def no_plain_on_cuda(monkeypatch):
     """Plain versions that raise on a CUDA tensor; returns the originals."""
     originals = {}
     for mod, name in ((F, "iso_u8_plain"), (F, "streak_u8_plain"), (F, "pointwise_u8_plain"),
-                      (B, "blur_uv_plain")):
+                      (B, "blur_uv_plain"), (M, "conv_plain"), (M, "attn_stats_plain"),
+                      (M, "msab_apply_plain"), (M, "up_fuse_plain")):
         fn = getattr(mod, name)
         originals[name] = fn
 
@@ -169,3 +175,122 @@ def test_uv_species_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, name):
     base_c, out_c = get_animal(name, "cpu").visualize(frame)
     assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0
     assert _lsb(torch.from_numpy(base_g), torch.from_numpy(base_c)) <= 1
+
+
+# --- MST++ kernels (ops/fused_msab.py); inputs of scale 0.5, weights of 0.2 ---
+
+MST_SHAPES = [(1, 8, 8), (2, 13, 21), (1, 9, 7), (1, 40, 67)]
+
+
+def _randn(rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+def _msab_weights(rng, c):
+    return M.MsabWeights(
+        heads=c // 31, wq=_randn(rng, c, c, scale=0.2), wk=_randn(rng, c, c, scale=0.2),
+        wv=_randn(rng, c, c, scale=0.2), rescale=torch.from_numpy(rng.uniform(0.5, 1.5, c // 31).astype(np.float32)),
+        wproj=_randn(rng, c, c, scale=0.2), bproj=_randn(rng, c, scale=0.2), pos0=_randn(rng, 3, 3, c, scale=0.2),
+        pos2=_randn(rng, 3, 3, c, scale=0.2), ln_w=1.0 + _randn(rng, c, scale=0.2), ln_b=_randn(rng, c, scale=0.2),
+        w0=_randn(rng, c, 4 * c, scale=0.2), dw=_randn(rng, 3, 3, 4 * c, scale=0.2),
+        w4=_randn(rng, 4 * c, c, scale=0.2))
+
+
+def _to(blk, device):
+    return M.MsabWeights(blk.heads, *(t.to(device) for t in blk[1:]))
+
+
+def _counted(kernel, fn, *args):
+    before = M.LAUNCHES[kernel]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert M.LAUNCHES[kernel] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("shape", MST_SHAPES)
+@pytest.mark.parametrize("cin,cout,k,residual", [(3, 31, 3, False), (31, 31, 3, False), (31, 31, 3, True),
+                                                   (31, 62, 4, False), (62, 124, 4, False)])
+def test_msab_conv_kernel(cuda, no_plain_on_cuda, shape, cin, cout, k, residual):
+    rng = np.random.default_rng(cin + cout + k)
+    x = _randn(rng, *shape, cin, scale=0.5)
+    w = _randn(rng, k, k, cin, cout, scale=0.2)
+    ho, wo = M.conv_out_hw(shape[1], shape[2], k)
+    r = _randn(rng, shape[0], ho, wo, cout, scale=0.5) if residual else None
+    got = _counted("conv_kernel", M.conv, x.to(cuda), w.to(cuda), None if r is None else r.to(cuda))
+    want = no_plain_on_cuda["conv_plain"](x, w, r)
+    assert got.shape == want.shape
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("shape", MST_SHAPES)
+@pytest.mark.parametrize("c", M.MSAB_CHANNELS)
+def test_attn_stats_kernel(cuda, no_plain_on_cuda, shape, c):
+    """Within 1e-5 of max |G| of the plain version, and bit-equal over two
+    runs (a fixed-order two-stage sum, no atomics)."""
+    rng = np.random.default_rng(c)
+    x = _randn(rng, *shape, c, scale=0.5)
+    wq, wk = _randn(rng, c, c, scale=0.2), _randn(rng, c, c, scale=0.2)
+    args = (x.to(cuda), wq.to(cuda), wk.to(cuda), c // 31)
+    got = _counted("attn_stats_kernel", M.attn_stats, *args)
+    again = M.attn_stats(*args)
+    want = no_plain_on_cuda["attn_stats_plain"](x, wq, wk, c // 31)
+    for a, b, r in zip(got, want, again):
+        assert a.shape == b.shape
+        assert (a.cpu() - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("shape", MST_SHAPES)
+@pytest.mark.parametrize("c", M.MSAB_CHANNELS)
+def test_msab_apply_kernel(cuda, no_plain_on_cuda, shape, c):
+    rng = np.random.default_rng(c + 1)
+    x = _randn(rng, *shape, c, scale=0.5)
+    blk = _msab_weights(rng, c)
+    m = _randn(rng, shape[0], c, c, scale=0.2)
+    got = _counted("msab_apply_kernel", M.msab_apply, x.to(cuda), m.to(cuda), _to(blk, cuda))
+    want = no_plain_on_cuda["msab_apply_plain"](x, m, blk)
+    assert (got.cpu() - want).abs().max().item() <= 5e-4
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4), (2, 7, 11), (1, 17, 30)])
+@pytest.mark.parametrize("c", [124, 62])
+def test_up_fuse_kernel(cuda, no_plain_on_cuda, shape, c):
+    """The bias's four (dy, dx) copies differ."""
+    rng = np.random.default_rng(c + 2)
+    n, h, w = shape
+    fea = _randn(rng, n, h, w, c, scale=0.5)
+    skip = _randn(rng, n, 2 * h, 2 * w, c // 2, scale=0.5)
+    wup, bup = _randn(rng, c, 2, 2, c // 2, scale=0.2), _randn(rng, 2, 2, c // 2, scale=0.2)
+    fuse = _randn(rng, c, c // 2, scale=0.2)
+    got = _counted("up_fuse_kernel", M.up_fuse, *(t.to(cuda) for t in (fea, skip, wup, bup, fuse)))
+    want = no_plain_on_cuda["up_fuse_plain"](fea, skip, wup, bup, fuse)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def test_mst_on_card_vs_cpu(cuda, no_plain_on_cuda):
+    """The shipped model at 64x96 (and 37x53, padded to 40x56): kernels on
+    the card against the plain versions on the CPU, < 5e-4, with the
+    per-forward launch counts."""
+    gpu, cpu = load_shipped(cuda), load_shipped("cpu")
+    for shape in [(1, 64, 96, 3), (2, 37, 53, 3)]:
+        x = torch.from_numpy(np.random.default_rng(7).random(shape, dtype=np.float32))
+        M.reset_launches()
+        with torch.no_grad():
+            got = gpu(x.to(cuda))
+            torch.cuda.synchronize()
+            assert M.LAUNCHES == {"conv_kernel": 14, "attn_stats_kernel": 15, "msab_apply_kernel": 15,
+                                  "up_fuse_kernel": 6}
+            want = cpu(x)
+        assert got.shape == want.shape == (*shape[:3], 31)
+        assert (got.cpu() - want).abs().max().item() < 5e-4
+
+
+@pytest.mark.parametrize("cls", [Kestrel, Goldfish])
+def test_uv_species_with_mst_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, cls):
+    frame = _frames((1, 72, 130), "cpu", seed=8)[0].numpy()
+    before = M.LAUNCHES["msab_apply_kernel"]
+    _, out_g = attach_mst(cls(cuda), load_shipped(cuda)).visualize(frame)
+    assert M.LAUNCHES["msab_apply_kernel"] == before + 15
+    _, out_c = attach_mst(cls("cpu"), load_shipped("cpu")).visualize(frame)
+    assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0

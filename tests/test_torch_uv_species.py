@@ -134,9 +134,20 @@ def test_uv_default_device_needs_cuda(monkeypatch):
 
 
 def test_hsi_provider_is_not_ported():
-    animal = get_animal("goldfish", device="cpu")
+    """Named when setting a provider raised. A UV animal starts on the
+    analytic upsampler; ``use_hsi_provider`` swaps in a provider and its
+    band grid and clears the built programs (``tests/test_torch_mst_*.py``
+    hold MST++ as that provider against the JAX package)."""
+    animal = get_animal("goldfish", device="cpu").__class__("cpu")
     assert animal.hsi_provider is None
-    with pytest.raises(NotImplementedError):
-        animal.hsi_provider = lambda x: x
-    with pytest.raises(NotImplementedError):
-        HoneyBee("cpu", hsi_provider=lambda x: x)
+    animal.transform((8, 8, 3))
+    assert animal._programs
+    lambdas = np.linspace(400.0, 700.0, 31, dtype=np.float32)
+
+    def provider(frames, plain=False):
+        return frames[..., :1].expand(*frames.shape[:-1], 31)
+
+    assert animal.use_hsi_provider(provider, lambdas=lambdas) is animal
+    assert animal.hsi_provider is provider and not animal._programs
+    np.testing.assert_array_equal(animal.lambdas, lambdas)
+    assert HoneyBee("cpu", hsi_provider=provider).hsi_provider is provider
