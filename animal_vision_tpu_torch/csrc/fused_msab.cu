@@ -45,7 +45,8 @@
 //   the chunk's W4 rows added into the output tile. The 4C hidden never
 //   reaches device memory. Tiles are 8x8 for C = 31, 62 and 4x8 for
 //   C = 124, so that the (2 (TH+6)(TW+6) + (TH+4)(TW+4)) C floats of
-//   shared memory fit a block (186 KB at C = 124).
+//   shared memory fit a block (186 KB at C = 124); at C = 62 and 124 only
+//   one block fits an SM, and it takes 16 warps instead of 8.
 // - up_fuse_kernel: a 4x8 input tile's 2x2 transposed convolution (with
 //   its bias per (dy, dx, out)) is written depth-to-space into the first
 //   half of an [up | skip] tile in shared memory, the skip tile into the
@@ -73,10 +74,10 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __device__ __forceinline__ float gelu(float x) { return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f)); }
 
 // out(o, p) = sum_k in[k * in_pitch + src(p)] * w[k * ldw + o] for o < no,
-// p < np. Lane l takes pixels l, l + 32, ... (NS of them); warp w takes
-// the output groups w, w + 8, ... of kGroup outputs. `epi(o, p, value)`
-// receives each result once.
-template <int NS, typename Src, typename Epi>
+// p < np. Lane l takes pixels l, l + 32, ... (NS of them); warp w of the
+// block's NW takes the output groups w, w + NW, ... of kGroup outputs.
+// `epi(o, p, value)` receives each result once.
+template <int NS, int NW, typename Src, typename Epi>
 __device__ __forceinline__ void warp_gemm(const float* in, int in_pitch, int nk, const float* __restrict__ w,
                                           int ldw, int no, int np, Src src, Epi epi) {
   const int lane = threadIdx.x & 31;
@@ -87,7 +88,7 @@ __device__ __forceinline__ void warp_gemm(const float* in, int in_pitch, int nk,
     const int p = lane + 32 * s;
     off[s] = p < np ? src(p) : 0;
   }
-  for (int o0 = warp * kGroup; o0 < no; o0 += kWarps * kGroup) {
+  for (int o0 = warp * kGroup; o0 < no; o0 += NW * kGroup) {
     const int nq = min(kGroup, no - o0);
     float acc[NS][kGroup];
 #pragma unroll
@@ -275,9 +276,9 @@ attn_stats_kernel(const float* __restrict__ x, const float* __restrict__ wq, con
       s_x[c * TP + p] = p0 + p < npix ? src[static_cast<size_t>(p0) * C + i] : 0.f;
     }
     __syncthreads();
-    warp_gemm<1>(s_x, TP, C, wq, C, C, TP, [](int p) { return p; },
+    warp_gemm<1, kWarps>(s_x, TP, C, wq, C, C, TP, [](int p) { return p; },
                  [&](int o, int p, float v) { s_q[o * PQ + p] = v; });
-    warp_gemm<1>(s_x, TP, C, wk, C, C, TP, [](int p) { return p; },
+    warp_gemm<1, kWarps>(s_x, TP, C, wk, C, C, TP, [](int p) { return p; },
                  [&](int o, int p, float v) { s_k[o * PQ + p] = v; });
     __syncthreads();
 #pragma unroll
@@ -341,9 +342,14 @@ int launch_stats(const float* x, const float* wq, const float* wk, float* part, 
 // memory; (ly, lx) of R_k is (ly - k + j, lx - k + j) of R_j's origin.
 // ---------------------------------------------------------------------------
 
+// Shared memory allows one block per SM at C = 62 and 124, so those blocks
+// take 16 warps (each warp then has one or two output groups of a GEMM);
+// at C = 31 three 8-warp blocks share an SM and 8 output groups keep 8
+// warps busy.
 template <int C>
 struct ApplyTile {
   static constexpr int kH = C > 62 ? 4 : 8, kW = 8;
+  static constexpr int kThreads = C > 31 ? 512 : 256;
 };
 
 template <int C>
@@ -353,7 +359,7 @@ __host__ __device__ constexpr size_t apply_smem_floats() {
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(ApplyTile<C>::kThreads)
 msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ m,
                   const float* __restrict__ wv, const float* __restrict__ bproj, const float* __restrict__ pos0,
                   const float* __restrict__ pos2, const float* __restrict__ lnw, const float* __restrict__ lnb,
@@ -365,6 +371,7 @@ msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const fl
   constexpr int W1 = TW + 2, N1 = (TH + 2) * W1;
   constexpr int N0 = TH * TW;
   constexpr int C4 = 4 * C;
+  constexpr int NT = ApplyTile<C>::kThreads, NW = NT / 32;
   extern __shared__ float smem[];
   float* s_a = smem;          // X over R3; later the hidden chunk H over R1, then H2 over R0
   float* s_b = s_a + C * N3;  // V over R3; later R (res1) over R1, then O (output) over R0
@@ -377,7 +384,7 @@ msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const fl
   const float* src = x + static_cast<size_t>(n) * h * w * C;
 
   // 1. X = x over R3, zero outside the image.
-  for (int i = threadIdx.x; i < N3 * C; i += kThreads) {
+  for (int i = threadIdx.x; i < N3 * C; i += NT) {
     const int p = i / C, c = i - p * C;
     const int gy = y0 - 3 + p / W3, gx = x0 - 3 + p % W3;
     s_a[c * N3 + p] = inside(gy, gx) ? src[(static_cast<size_t>(gy) * w + gx) * C + c] : 0.f;
@@ -385,12 +392,12 @@ msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const fl
   __syncthreads();
 
   // 2. V = X Wv over R3 (zero outside the image, as X is).
-  warp_gemm<cdiv(N3, 32)>(s_a, N3, C, wv, C, C, N3, [](int p) { return p; },
+  warp_gemm<cdiv(N3, 32), NW>(s_a, N3, C, wv, C, C, N3, [](int p) { return p; },
                           [&](int o, int p, float v) { s_b[o * N3 + p] = v; });
   __syncthreads();
 
   // 3. T = gelu(dw3(V, pos0)) over R2, zero outside the image.
-  for (int i = threadIdx.x; i < N2 * C; i += kThreads) {
+  for (int i = threadIdx.x; i < N2 * C; i += NT) {
     const int c = i / N2, p = i - c * N2;
     const int ly = p / W2, lx = p - ly * W2;
     float t = 0.f;
@@ -406,7 +413,7 @@ msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const fl
   __syncthreads();
 
   // 4. R = X M + bproj + dw3(T, pos2) + X over R1, into s_b (V is dead).
-  warp_gemm<cdiv(N1, 32)>(
+  warp_gemm<cdiv(N1, 32), NW>(
       s_a, N3, C, m + static_cast<size_t>(n) * C * C, C, C, N1,
       [](int p) { return (p / W1 + 2) * W3 + p % W1 + 2; },
       [&](int o, int p, float v) {
@@ -421,7 +428,7 @@ msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const fl
 
   // 5. Y = LayerNorm(R) over R1 (biased variance, eps 1e-5), into s_c (T is
   //    dead); O = R over R0, the FFN's residual.
-  for (int p = threadIdx.x; p < N1; p += kThreads) {
+  for (int p = threadIdx.x; p < N1; p += NT) {
     float mu = 0.f;
     for (int c = 0; c < C; ++c) mu += s_b[c * N1 + p];
     mu /= C;
@@ -434,7 +441,7 @@ msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const fl
     const float inv = 1.0f / sqrtf(var + 1e-5f);
     for (int c = 0; c < C; ++c) s_c[c * N1 + p] = (s_b[c * N1 + p] - mu) * inv * __ldg(lnw + c) + __ldg(lnb + c);
   }
-  for (int i = threadIdx.x; i < C * N0; i += kThreads) {
+  for (int i = threadIdx.x; i < C * N0; i += NT) {
     const int c = i / N0, p = i - c * N0;
     s_o[i] = s_b[c * N1 + (p / TW + 1) * W1 + p % TW + 1];
   }
@@ -443,14 +450,14 @@ msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const fl
   // 6. The FFN, C hidden channels at a time.
   for (int k0 = 0; k0 < C4; k0 += C) {
     // H = gelu(Y W0[:, k0:k0+C]) over R1, zero outside the image.
-    warp_gemm<cdiv(N1, 32)>(s_c, N1, C, w0 + k0, C4, C, N1, [](int p) { return p; },
+    warp_gemm<cdiv(N1, 32), NW>(s_c, N1, C, w0 + k0, C4, C, N1, [](int p) { return p; },
                             [&](int o, int p, float v) {
                               const int ly = p / W1, lx = p - ly * W1;
                               s_a[o * N1 + p] = inside(y0 - 1 + ly, x0 - 1 + lx) ? gelu(v) : 0.f;
                             });
     __syncthreads();
     // H2 = gelu(dw3(H)) over R0.
-    for (int i = threadIdx.x; i < C * N0; i += kThreads) {
+    for (int i = threadIdx.x; i < C * N0; i += NT) {
       const int c = i / N0, p = i - c * N0;
       const float* hh = s_a + c * N1 + (p / TW) * W1 + p % TW;
       float acc = 0.f;
@@ -460,14 +467,15 @@ msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const fl
     }
     __syncthreads();
     // O += H2 W4[k0:k0+C, :]
-    warp_gemm<cdiv(N0, 32)>(s_h2, N0, C, w4 + static_cast<size_t>(k0) * C, C, C, N0, [](int p) { return p; },
+    warp_gemm<cdiv(N0, 32), NW>(s_h2, N0, C, w4 + static_cast<size_t>(k0) * C, C, C, N0,
+                                [](int p) { return p; },
                             [&](int o, int p, float v) { s_o[o * N0 + p] += v; });
     __syncthreads();
   }
 
   // 7. Store O over the tile's pixels inside the image.
   float* dst = out + static_cast<size_t>(n) * h * w * C;
-  for (int i = threadIdx.x; i < N0 * C; i += kThreads) {
+  for (int i = threadIdx.x; i < N0 * C; i += NT) {
     const int p = i / C, c = i - p * C;
     const int gy = y0 + p / TW, gx = x0 + p % TW;
     if (gy < h && gx < w) dst[(static_cast<size_t>(gy) * w + gx) * C + c] = s_o[c * N0 + p];
@@ -483,8 +491,8 @@ int launch_apply(const float* x, float* out, const float* m, const float* wv, co
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(cdiv(w, ApplyTile<C>::kW), cdiv(h, ApplyTile<C>::kH), n);
-  msab_apply_kernel<C><<<grid, kThreads, smem, stream>>>(x, out, m, wv, bproj, pos0, pos2, lnw, lnb, w0, dwk, w4,
-                                                         h, w);
+  msab_apply_kernel<C><<<grid, ApplyTile<C>::kThreads, smem, stream>>>(x, out, m, wv, bproj, pos0, pos2, lnw,
+                                                                        lnb, w0, dwk, w4, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -525,7 +533,7 @@ up_fuse_kernel(const float* __restrict__ fea, const float* __restrict__ skip, fl
   __syncthreads();
   // up(o = (dy, dx, j), p) = fea(p) wup[:, o] + bup[o], written to output
   // pixel (2y + dy, 2x + dx), channel j.
-  warp_gemm<cdiv(kUpIn, 32)>(s_f, kUpIn, C, wup, 4 * HF, 4 * HF, kUpIn, [](int p) { return p; },
+  warp_gemm<cdiv(kUpIn, 32), kWarps>(s_f, kUpIn, C, wup, 4 * HF, 4 * HF, kUpIn, [](int p) { return p; },
                              [&](int o, int p, float v) {
                                const int dd = o / HF, j = o - dd * HF;
                                const int py = 2 * (p / kUpW) + dd / 2, px = 2 * (p % kUpW) + dd % 2;
@@ -533,7 +541,7 @@ up_fuse_kernel(const float* __restrict__ fea, const float* __restrict__ skip, fl
                              });
   __syncthreads();
   float* dst = out + static_cast<size_t>(n) * h2 * w2 * HF;
-  warp_gemm<cdiv(kUpOut, 32)>(s_x, kUpOut, C, fuse, HF, HF, kUpOut, [](int p) { return p; },
+  warp_gemm<cdiv(kUpOut, 32), kWarps>(s_x, kUpOut, C, fuse, HF, HF, kUpOut, [](int p) { return p; },
                               [&](int o, int p, float v) {
                                 const int gy = 2 * y0 + p / kUpOutW, gx = 2 * x0 + p % kUpOutW;
                                 if (gy < h2 && gx < w2) dst[(static_cast<size_t>(gy) * w2 + gx) * HF + o] = v;
