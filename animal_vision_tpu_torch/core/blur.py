@@ -1,9 +1,10 @@
 """Gaussian blurs with OpenCV-matched semantics.
 
 Counterpart of ``animal_vision_tpu/core/blur.py``. Kernel sizes, tap
-weights, reflect-101 indices and the per-row streak tables are NumPy host
-tables, identical to the JAX package's; the blurs themselves are PyTorch
-shifted-slice sums over (..., H, W, C) tensors. The UV blur
+weights, reflect-101 indices, the per-row streak tables and the scanline
+profiles (``blur_profile_1d``) are NumPy host tables, identical to the JAX
+package's; the blurs themselves are PyTorch shifted-slice sums over
+(..., H, W, C) tensors. The UV blur
 (``gaussian_blur_uv``) goes through the ``blur_uv`` kernel on the card.
 
 The per-row "visual streak" blur keeps the reference's quirk: each (W, 3)
@@ -120,6 +121,24 @@ def gaussian_blur_uv(img: torch.Tensor, sigma: float, plain: bool = False) -> to
     frames = img.reshape(-1, *img.shape[-3:])
     out = fused_blur.blur_uv_plain(frames, taps) if plain else fused_blur.blur_uv(frames, taps)
     return out.reshape(img.shape)
+
+
+def blur_profile_1d(profile: np.ndarray, sigma: float) -> np.ndarray:
+    """The UV blur (``uv_ksize`` taps, reflect-101) of a per-row (H,)
+    profile, in NumPy: the scanline row gains. The reference blurs an
+    (H, W) row-constant image; its W pass is the identity, so the blur folds
+    to this 1-D pass, computed once on the host."""
+    if sigma <= 0:
+        return profile.astype(np.float32)
+    k = uv_ksize(sigma)
+    kern = gaussian_kernel_1d(k, sigma).astype(np.float32)
+    r = k // 2
+    n = profile.shape[0]
+    padded = profile.astype(np.float32)[reflect101_index(np.arange(-r, n + r), n)]
+    out = np.zeros(n, dtype=np.float32)
+    for t in range(k):
+        out += kern[t] * padded[t : t + n]
+    return out
 
 
 def _channel_mix_matrix(ksize: int, sigma: float, channels: int = 3) -> np.ndarray:

@@ -84,6 +84,12 @@ def _device_mask(h: int, w: int, radius: float, softness: float, device: str) ->
     return torch.from_numpy(radial_sigmoid_mask((h, w), radius, softness)[..., None]).to(device)
 
 
+def radial_mask_on(img: torch.Tensor, radius: float, softness: float) -> torch.Tensor:
+    """``radial_sigmoid_mask`` of ``img``'s (H, W) as an (H, W, 1) tensor on
+    its device, made once per shape."""
+    return _device_mask(int(img.shape[-3]), int(img.shape[-2]), float(radius), float(softness), str(img.device))
+
+
 def peripheral_blur(
     img: torch.Tensor, sigma: float, radius: float, softness: float, plain: bool = False
 ) -> torch.Tensor:
@@ -91,5 +97,5 @@ def peripheral_blur(
     if sigma <= 0.0:
         return img
     soft = _blur.gaussian_blur_uv(img, sigma, plain)
-    t = _device_mask(int(img.shape[-3]), int(img.shape[-2]), float(radius), float(softness), str(img.device))
+    t = radial_mask_on(img, radius, softness)
     return (1.0 - t) * img + t * soft

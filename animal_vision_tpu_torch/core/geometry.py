@@ -2,9 +2,9 @@
 tables (linear resize and binocular FOV warp as dense per-axis matrices).
 
 Counterpart of ``animal_vision_tpu/core/geometry.py``'s resize family,
-``panorama_warp`` and the cat's tables. Tap indices and weights are NumPy,
-with OpenCV's float-path coefficient formulas, identical to the JAX
-package's. ``resize`` and ``panorama_warp`` apply them per axis on the
+``panorama_warp``, ``vertical_remap_static`` and the cat's tables. Tap
+indices and weights are NumPy, with OpenCV's float-path coefficient
+formulas, identical to the JAX package's. ``resize`` and ``panorama_warp`` apply them per axis on the
 device as ``torch.index_select`` gathers and weighted sums in tap order
 (the JAX package's CPU path), over (..., H, W, C) tensors. The cat's device
 work is a matrix product per axis (``core/linalg.py``).
@@ -198,6 +198,40 @@ def panorama_warp(img: torch.Tensor, scale_x: float) -> torch.Tensor:
     if abs(scale_x - 1.0) < 1e-3:
         return img
     return _apply_taps(img, _device_panorama(int(img.shape[-2]), float(scale_x), str(img.device)), -2)
+
+
+def vertical_remap_plan(map_y: np.ndarray, device) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The device tables of ``vertical_remap_static`` for a static (H, W)
+    row map: per row offset d = floor(map_y) - y that occurs, the clamped
+    source rows y + d and y + d + 1 and their (H, W, 1) weights
+    (1 - f, f), masked to the pixels whose offset is d."""
+    h = int(map_y.shape[0])
+    iy = np.floor(map_y).astype(np.int64)
+    frac = (map_y - iy).astype(np.float32)
+    d = iy - np.arange(h)[:, None]
+    rows = np.arange(h)
+    plan = []
+    for dd in range(int(d.min()), int(d.max()) + 1):
+        mask = d == dd
+        if not mask.any():
+            continue
+        src0, src1 = np.clip(rows + dd, 0, h - 1), np.clip(rows + dd + 1, 0, h - 1)
+        w0 = (mask * (1.0 - frac)).astype(np.float32)[..., None]
+        w1 = (mask * frac).astype(np.float32)[..., None]
+        plan.append(tuple(torch.from_numpy(a).to(device) for a in (src0, src1, w0, w1)))
+    return plan
+
+
+def vertical_remap_static(img: torch.Tensor, plan) -> torch.Tensor:
+    """Bilinear vertical-only remap of (..., H, W, C) with a static row map
+    (``vertical_remap_plan``): cv2.remap with the identity x map and
+    INTER_LINEAR where the map stays in bounds. Sums the offsets in
+    increasing order, each as shifted rows with edge clamp, like the JAX
+    package."""
+    out = torch.zeros_like(img)
+    for src0, src1, w0, w1 in plan:
+        out = out + torch.index_select(img, -3, src0) * w0 + torch.index_select(img, -3, src1) * w1
+    return out
 
 
 def resize_matrix(src: int, dst: int) -> np.ndarray:

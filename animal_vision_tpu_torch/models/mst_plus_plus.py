@@ -266,6 +266,49 @@ class MSTPlusPlus(nn.Module):
         return out[:, :h, :w, :]
 
 
+def _jax_t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def _jax_conv_w(k) -> torch.Tensor:
+    """A JAX (kh, kw, in, out) kernel as the reference's (out, in, kh, kw)."""
+    return _jax_t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+
+def _jax_dense_w(k) -> torch.Tensor:
+    """A JAX (in, out) kernel as the reference's (out, in)."""
+    return _jax_t(np.asarray(k).T)
+
+
+def jax_msab_into(sd: dict, prefix: str, q) -> None:
+    """Write a JAX MSAB param tree ``q`` (``attn_i``, ``norm_i``, ``ff_i``)
+    into ``sd`` under the reference names of ``prefix.blocks.i``."""
+    for i in range(sum(1 for k in q if k.startswith("attn_"))):
+        a, f = f"{prefix}.blocks.{i}.0", f"{prefix}.blocks.{i}.1"
+        at = q[f"attn_{i}"]
+        for name in ("to_q", "to_k", "to_v"):
+            sd[f"{a}.{name}.weight"] = _jax_dense_w(at[name]["kernel"])
+        sd[f"{a}.rescale"] = _jax_t(at["rescale"])
+        sd[f"{a}.proj.weight"] = _jax_dense_w(at["proj"]["kernel"])
+        sd[f"{a}.proj.bias"] = _jax_t(at["proj"]["bias"])
+        sd[f"{a}.pos_emb.0.weight"] = _jax_conv_w(at["pos_emb_0"]["kernel"])
+        sd[f"{a}.pos_emb.2.weight"] = _jax_conv_w(at["pos_emb_2"]["kernel"])
+        sd[f"{f}.norm.weight"] = _jax_t(q[f"norm_{i}"]["scale"])
+        sd[f"{f}.norm.bias"] = _jax_t(q[f"norm_{i}"]["bias"])
+        for j in (0, 2, 4):
+            sd[f"{f}.fn.net.{j}.weight"] = _jax_conv_w(q[f"ff_{i}"][f"net_{j}"]["kernel"])
+
+
+def jax_up_into(sd: dict, prefix: str, q) -> None:
+    """Write a JAX decoder up-convolution (a 1x1 kernel to (dy, dx, out)
+    channels and its bias) into ``sd`` as ``prefix.weight`` (in, out, 2, 2)
+    and ``prefix.bias`` (out, 2, 2), the four bias copies kept apart."""
+    k = np.asarray(q["kernel"])[0, 0]  # (in, (dy, dx, out))
+    half = k.shape[1] // 4
+    sd[f"{prefix}.weight"] = _jax_t(np.transpose(k.reshape(-1, 2, 2, half), (0, 3, 1, 2)))
+    sd[f"{prefix}.bias"] = _jax_t(np.transpose(np.asarray(q["bias"]).reshape(2, 2, half), (2, 0, 1)))
+
+
 def from_jax_params(params) -> dict[str, torch.Tensor]:
     """The port's state dict of a JAX ``MSTPlusPlus`` param tree (the
     ``"params"`` collection, arrays or anything ``np.asarray`` takes), exact:
@@ -273,49 +316,20 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
     copies kept apart as (half, 2, 2)."""
     sd: dict[str, torch.Tensor] = {}
 
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
-
-    def conv_w(k):  # (kh, kw, in, out) -> (out, in, kh, kw)
-        return t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
-
-    def dense_w(k):  # (in, out) -> (out, in)
-        return t(np.asarray(k).T)
-
-    def msab(prefix, q):
-        for i in range(sum(1 for k in q if k.startswith("attn_"))):
-            a, f = f"{prefix}.blocks.{i}.0", f"{prefix}.blocks.{i}.1"
-            at = q[f"attn_{i}"]
-            for name in ("to_q", "to_k", "to_v"):
-                sd[f"{a}.{name}.weight"] = dense_w(at[name]["kernel"])
-            sd[f"{a}.rescale"] = t(at["rescale"])
-            sd[f"{a}.proj.weight"] = dense_w(at["proj"]["kernel"])
-            sd[f"{a}.proj.bias"] = t(at["proj"]["bias"])
-            sd[f"{a}.pos_emb.0.weight"] = conv_w(at["pos_emb_0"]["kernel"])
-            sd[f"{a}.pos_emb.2.weight"] = conv_w(at["pos_emb_2"]["kernel"])
-            sd[f"{f}.norm.weight"] = t(q[f"norm_{i}"]["scale"])
-            sd[f"{f}.norm.bias"] = t(q[f"norm_{i}"]["bias"])
-            for j in (0, 2, 4):
-                sd[f"{f}.fn.net.{j}.weight"] = conv_w(q[f"ff_{i}"][f"net_{j}"]["kernel"])
-
     def mst(prefix, q, st=2):
-        sd[f"{prefix}.embedding.weight"] = conv_w(q["embedding"]["kernel"])
+        sd[f"{prefix}.embedding.weight"] = _jax_conv_w(q["embedding"]["kernel"])
         for i in range(st):
-            msab(f"{prefix}.encoder_layers.{i}.0", q[f"enc_msab_{i}"])
-            sd[f"{prefix}.encoder_layers.{i}.1.weight"] = conv_w(q[f"enc_down_{i}"]["kernel"])
-        msab(f"{prefix}.bottleneck", q["bottleneck"])
+            jax_msab_into(sd, f"{prefix}.encoder_layers.{i}.0", q[f"enc_msab_{i}"])
+            sd[f"{prefix}.encoder_layers.{i}.1.weight"] = _jax_conv_w(q[f"enc_down_{i}"]["kernel"])
+        jax_msab_into(sd, f"{prefix}.bottleneck", q["bottleneck"])
         for i in range(st):
-            k = np.asarray(q[f"dec_up_{i}"]["kernel"])[0, 0]  # (in, (dy, dx, out))
-            half = k.shape[1] // 4
-            sd[f"{prefix}.decoder_layers.{i}.0.weight"] = t(np.transpose(k.reshape(-1, 2, 2, half), (0, 3, 1, 2)))
-            bias = np.asarray(q[f"dec_up_{i}"]["bias"]).reshape(2, 2, half)
-            sd[f"{prefix}.decoder_layers.{i}.0.bias"] = t(np.transpose(bias, (2, 0, 1)))
-            sd[f"{prefix}.decoder_layers.{i}.1.weight"] = conv_w(q[f"dec_fuse_{i}"]["kernel"])
-            msab(f"{prefix}.decoder_layers.{i}.2", q[f"dec_msab_{i}"])
-        sd[f"{prefix}.mapping.weight"] = conv_w(q["mapping"]["kernel"])
+            jax_up_into(sd, f"{prefix}.decoder_layers.{i}.0", q[f"dec_up_{i}"])
+            sd[f"{prefix}.decoder_layers.{i}.1.weight"] = _jax_conv_w(q[f"dec_fuse_{i}"]["kernel"])
+            jax_msab_into(sd, f"{prefix}.decoder_layers.{i}.2", q[f"dec_msab_{i}"])
+        sd[f"{prefix}.mapping.weight"] = _jax_conv_w(q["mapping"]["kernel"])
 
-    sd["conv_in.weight"] = conv_w(params["conv_in"]["kernel"])
-    sd["conv_out.weight"] = conv_w(params["conv_out"]["kernel"])
+    sd["conv_in.weight"] = _jax_conv_w(params["conv_in"]["kernel"])
+    sd["conv_out.weight"] = _jax_conv_w(params["conv_out"]["kernel"])
     for i in range(sum(1 for k in params if k.startswith("body_"))):
         mst(f"body.{i}", params[f"body_{i}"])
     return sd

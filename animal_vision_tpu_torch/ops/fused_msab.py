@@ -180,15 +180,15 @@ def attn_stats_plain(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, heads:
 
 
 def msab_apply_plain(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
-    """Plain version of ``msab_apply``."""
+    """Plain version of ``msab_apply``: its FFN is ``fused_mst.ffn_plain``."""
+    from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
+
     _check_apply(x, m, blk)
     n, h, w, c = x.shape
     pos = _dw3(F.gelu(_dw3(linalg.frame_matmul(x, blk.wv), blk.pos0)), blk.pos2)
     att = torch.bmm(x.reshape(n, h * w, c), m).reshape(x.shape)
     res1 = att + blk.bproj + pos + x
-    y = F.layer_norm(res1, (c,), blk.ln_w, blk.ln_b, eps=1e-5)
-    hid = F.gelu(_dw3(F.gelu(linalg.frame_matmul(y, blk.w0)), blk.dw))
-    return linalg.frame_matmul(hid, blk.w4) + res1
+    return fused_mst.ffn_plain(res1, blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
 
 
 def up_fuse_plain(fea: torch.Tensor, skip: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,

@@ -18,10 +18,11 @@ raises on failure:
    kernels at the three levels of a 1080x1920 frame and of 4 frames of
    272x480 (kestrel's and goldfish's 0.25-scale operating point), random
    weights of scale 0.2: conv and up_fuse <= 1e-4, stats <= 1e-5 of max |G|,
-   apply <= 5e-4; then each kernel's time (CUDA events), its plain
-   version's time, its bound, and a library reference for the UV blur
-   (reflect pad + two depthwise convolutions) and the MST++ convolution
-   (``F.conv2d`` on channels-last tensors);
+   apply <= 5e-4; MST-L's FFN kernel at the same levels and at 721x1283
+   with C = 31, weights of scale 0.2, <= 1e-4; then each kernel's time
+   (CUDA events), its plain version's time, its bound, and a library
+   reference for the UV blur (reflect pad + two depthwise convolutions)
+   and the MST++ convolution (``F.conv2d`` on channels-last tensors);
 4. main path: ``get_animal(name).visualize(frame)`` and
    ``visualize_batch_device`` (4 frames already on the card) at 1080p, first
    for the 20 non-UV species, then for the ported UV species, with the
@@ -35,10 +36,16 @@ raises on failure:
    frame, counters around the run (14 conv, 15 stats, 15 apply, 6 up_fuse
    launches per forward), each against its plain version on the card
    (forward < 5e-4, species >= 40 dB, baselines <= 1 LSB), ms and fps;
+   then MST-L (the zoo's ``"mst"``) with weights made from a seed: one
+   1080p forward, kestrel and mantis shrimp with ``attach_model(..., "mst")``
+   and mantis shrimp with ``attach_mst``, through both entry points,
+   counters around the run (27 ``ffn`` launches per MST-L forward), each
+   against its plain version on the card (forward within 5e-4 of max |y|,
+   species >= 40 dB, baselines <= 1 LSB), ms and fps;
 5. profile: ``torch.profiler`` device time by name beside the host-clock
    time for one non-UV species per kernel, the cat and the UV species,
-   through each entry point, the 1080p MST++ forward and kestrel with
-   MST++;
+   through each entry point, the 1080p MST++ forward, kestrel with MST++,
+   the 1080p MST-L forward and mantis shrimp with MST-L;
 6. summary: one JSON line with each kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -76,7 +83,7 @@ BLUR_TOL = 1e-5  # max abs error on [0, 1] data
 BLUR_REPS = 20
 BLUR_PLAIN_REPS = 2
 BLUR_REPRESENTATIVE = (19, 3)  # (ksize, C): kestrel's structure tensor at 1080p
-UV_REPS = 20
+UV_REPS = 10
 UV_MIN_DB = 40.0
 # one non-UV species per kernel, the cat's products, and the UV species
 PROFILE_SPECIES = ("dog", "deer", "rat", "cat", "honeybee", "reindeer", "goldfish", "kestrel")
@@ -94,6 +101,14 @@ MST_PER_FORWARD = {"conv_kernel": 14, "attn_stats_kernel": 15, "msab_apply_kerne
 # the 1080p case of each MST++ kernel that the summary line reports
 MST_REPRESENTATIVE = {"conv_kernel": "31->31 k3", "attn_stats_kernel": "C=31", "msab_apply_kernel": "C=31",
                       "up_fuse_kernel": "62->31"}
+# MST-L's FFN: (point, frames, h, w, C) of each case; the first two points'
+# three levels, then 721x1283 at C = 31
+FFN_CASES = tuple((point, n, h >> lvl, w >> lvl, c) for point, ((h, w), n) in MST_POINTS.items()
+                  for lvl, c in enumerate((31, 62, 124))) + (("721x1283", 1, 721, 1283, 31),)
+FFN_TOL = 1e-4
+MSTL_FORWARD_REL_TOL = 5e-4  # of max |y|: the seeded model's output reaches the hundreds
+MSTL_FORWARD_REPS = 5
+MSTL_PER_FORWARD = 27
 SOURCES = {
     "iso_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
     "streak_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
@@ -103,6 +118,7 @@ SOURCES = {
     "attn_stats_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
     "msab_apply_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
     "up_fuse_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
+    "ffn_kernel": "animal_vision_tpu_torch/csrc/fused_mst.cu",
 }
 REPLACES = {
     "iso_u8": "animal_vision_tpu/ops/fused_nonuv.py:199",
@@ -113,6 +129,7 @@ REPLACES = {
     "attn_stats_kernel": "animal_vision_tpu/ops/fused_msab.py:192",
     "msab_apply_kernel": "animal_vision_tpu/ops/fused_msab.py:293",
     "up_fuse_kernel": "animal_vision_tpu/ops/fused_msab.py:848",
+    "ffn_kernel": "animal_vision_tpu/ops/fused_mst.py:54",
 }
 REPORT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_report.json"
 
@@ -167,19 +184,22 @@ def psnr_db(a: torch.Tensor, b: torch.Tensor) -> float:
 def reset_counters() -> None:
     from animal_vision_tpu_torch.ops import fused_blur as B
     from animal_vision_tpu_torch.ops import fused_msab as M
+    from animal_vision_tpu_torch.ops import fused_mst as T
     from animal_vision_tpu_torch.ops import fused_nonuv as F
 
     F.reset_launches()
     B.reset_launches()
     M.reset_launches()
+    T.reset_launches()
 
 
 def counters() -> dict:
     from animal_vision_tpu_torch.ops import fused_blur as B
     from animal_vision_tpu_torch.ops import fused_msab as M
+    from animal_vision_tpu_torch.ops import fused_mst as T
     from animal_vision_tpu_torch.ops import fused_nonuv as F
 
-    return {**F.LAUNCHES, **B.LAUNCHES, **M.LAUNCHES}
+    return {**F.LAUNCHES, **B.LAUNCHES, **M.LAUNCHES, **T.LAUNCHES}
 
 
 @contextlib.contextmanager
@@ -187,10 +207,12 @@ def plain_forbidden_on_cuda():
     """Make every plain kernel version raise if a CUDA tensor reaches it."""
     from animal_vision_tpu_torch.ops import fused_blur as B
     from animal_vision_tpu_torch.ops import fused_msab as M
+    from animal_vision_tpu_torch.ops import fused_mst as T
     from animal_vision_tpu_torch.ops import fused_nonuv as F
 
     names = ((F, "iso_u8_plain"), (F, "streak_u8_plain"), (F, "pointwise_u8_plain"), (B, "blur_uv_plain"),
-             (M, "conv_plain"), (M, "attn_stats_plain"), (M, "msab_apply_plain"), (M, "up_fuse_plain"))
+             (M, "conv_plain"), (M, "attn_stats_plain"), (M, "msab_apply_plain"), (M, "up_fuse_plain"),
+             (T, "ffn_plain"))
     saved = {n: getattr(mod, n) for mod, n in names}
 
     def guard(name, fn):
@@ -582,6 +604,55 @@ def mst_kernels_phase(device: torch.device, points=MST_POINTS, reps=MST_KERNEL_R
     return rows
 
 
+def ffn_phase(device: torch.device, cases=FFN_CASES, reps=MST_KERNEL_REPS, plain_reps=MST_PLAIN_REPS) -> list[dict]:
+    """MST-L's ``ffn`` against ``ffn_plain`` at the MST-L levels of the two
+    operating points and at 721x1283: inputs of scale 0.5, weights of scale
+    0.2 (``torch.randn`` on the card); its time, the plain version's, its
+    bound (no one PyTorch call computes the FFN: no library time). A
+    multiply-add is 2 operations; per pixel the two 1x1 maps 16 C^2, the
+    depthwise 72 C, GELU 1 per hidden value twice (8 C), LayerNorm about 8
+    per channel, the residual 1."""
+    from animal_vision_tpu_torch.ops import fused_mst as T
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    rows = []
+    for point, n, h, w, c in cases:
+        x = randn(n, h, w, c, scale=0.5)
+        ws = (1.0 + randn(c, scale=0.2), randn(c, scale=0.2), randn(c, 4 * c, scale=0.2), randn(3, 3, 4 * c, scale=0.2),
+              randn(4 * c, c, scale=0.2))
+        got, want = T.ffn(x, *ws), T.ffn_plain(x, *ws)
+        sync(device)
+        err = (got - want).abs().max().item()
+        if not err <= FFN_TOL:
+            raise AssertionError(f"ffn C={c} {h}x{w} x{n}: {err} from its plain version (tolerance {FFN_TOL})")
+        del got, want
+        before = T.LAUNCHES["ffn"]
+        ms = time_ms(lambda: T.ffn(x, *ws), reps, device)
+        if device.type == "cuda" and T.LAUNCHES["ffn"] == before:
+            raise AssertionError("ffn_kernel did not launch")
+        plain_ms = time_ms(lambda: T.ffn_plain(x, *ws), plain_reps, device, warmup=1)
+        px = n * h * w
+        nbytes = 4 * (2 * px * c + sum(t.numel() for t in ws))
+        ops = px * (16 * c * c + 72 * c + 8 * c + 8 * c + c)
+        bound_s = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+        row = dict(
+            kernel="ffn_kernel", case=f"C={c}", point=point, h=h, w=w, frames=n, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=None, bound_ms=bound_s * 1e3, bytes=nbytes, ops=ops,
+            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
+            tile=list(T.tile_for(c, T.smem_limit(torch.cuda.current_device()))) if device.type == "cuda" else None,
+        )
+        rows.append(row)
+        log(f"[kernel] ffn_kernel        {row['case']:<22} {h}x{w} x{n}: err {err:.3g}, {ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"{row['bound_ms'] / ms:.1%} of bound, tile {row['tile']})")
+        del x, ws
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -828,6 +899,94 @@ def mst_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MST_
     return result
 
 
+def mst_l_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MSTL_FORWARD_REPS,
+                          species_reps=MST_SPECIES_REPS) -> dict:
+    """MST-L (the zoo's ``"mst"``, weights made from a seed) through the
+    entry points a user calls: ``zoo.model_generator`` on one 1080p frame;
+    kestrel and mantis shrimp with ``attach_model(..., "mst")`` and mantis
+    shrimp with ``attach_mst`` (MST++, shipped weights) through
+    ``visualize`` and ``visualize_batch_device``. The counters are set to 0
+    before that run and read after it: 27 ``ffn`` launches per MST-L
+    forward (one per frame), the MST++ counts per MST++ forward. Then each
+    against its plain version on the card, and the times."""
+    from animal_vision_tpu_torch.models import zoo
+    from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
+    from animal_vision_tpu_torch.models.providers import attach_model, attach_mst
+    from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
+    from animal_vision_tpu_torch.species.uv.mantis_shrimp import MantisShrimp
+
+    rng = np.random.default_rng(SEED + 6)
+    h, w = hw
+    host = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    frames = torch.from_numpy(host).to(device)
+    x = (frames[:1].to(torch.float32) / 255.0).contiguous()
+    model = zoo.model_generator("mst", device=device, seed=SEED)
+    animals = {"kestrel+mst-l": attach_model(Kestrel(device), "mst"),
+               "mantis_shrimp+mst-l": attach_model(MantisShrimp(device), "mst"),
+               "mantis_shrimp+mst++": attach_mst(MantisShrimp(device), load_shipped(device))}
+    sync(device)
+
+    items = {"forward": (lambda: model(x), {"ffn": MSTL_PER_FORWARD})}
+    for name, animal in animals.items():
+        mst_pp = name.endswith("mst++")
+        one = {**MST_PER_FORWARD, "ffn": 0} if mst_pp else {"ffn": MSTL_PER_FORWARD}
+        many = one if mst_pp else {"ffn": MSTL_PER_FORWARD * batch}  # MST-L: one forward per frame
+        items[f"{name} visualize"] = (lambda a=animal: a.visualize(host[0]), one)
+        items[f"{name} batch{batch}"] = (lambda a=animal: a.visualize_batch_device(frames), many)
+    outputs, per_item = {}, {}
+    with torch.no_grad(), plain_forbidden_on_cuda():
+        reset_counters()
+        for label, (fn, _) in items.items():
+            before = counters()
+            outputs[label] = fn()
+            per_item[label] = {k: v - before[k] for k, v in counters().items()}
+        sync(device)
+        launches = counters()
+    log(f"[main] launches over the MST-L main-path run ({len(items)} items): "
+        f"{ {k: launches[k] for k in ('ffn', *MST_PER_FORWARD)} }")
+    for label, (_, want) in items.items():
+        got = {k: per_item[label][k] for k in want}
+        if device.type == "cuda" and got != want:
+            raise AssertionError(f"{label}: expected {want} launches, counted {got}")
+
+    with torch.no_grad():
+        got = outputs["forward"]
+        want = model(x, plain=True)
+        err = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        if not (got.shape == (1, h, w, 31) and torch.isfinite(got).all().item() and err <= MSTL_FORWARD_REL_TOL * scale):
+            raise AssertionError(f"MST-L forward at {h}x{w}: shape {tuple(got.shape)}, {err} from the plain forward "
+                                 f"(max |y| {scale})")
+        forward = wall_ms(lambda: (model(x), sync(device)), reps)
+        plain_forward = wall_ms(lambda: (model(x, plain=True), sync(device)), 1)
+    log(f"[main] MST-L {h}x{w} forward: max {err:.3g} from the plain forward (max |y| {scale:.1f}); median "
+        f"{forward['median']:.2f} ms (p90 {forward['p90']:.2f}), plain {plain_forward['median']:.1f} ms")
+    result = dict(forward_max_abs_err=err, forward_max_abs=scale, forward_ms=forward, plain_forward_ms=plain_forward,
+                  launches=launches, per_item=per_item, species={})
+
+    for name, animal in animals.items():
+        base1, out1 = outputs[f"{name} visualize"]
+        base_b, out_b = outputs[f"{name} batch{batch}"]
+        with torch.no_grad():
+            plain_base, plain = animal.plain_transform((h, w, 3), np.uint8)(frames)
+        db = min(psnr_db(torch.from_numpy(out1), plain[0]), psnr_db(out_b, plain))
+        base_lsb = max(max_lsb(torch.from_numpy(base1).to(device), plain_base[0]), max_lsb(base_b, plain_base))
+        if db < UV_MIN_DB or base_lsb > TOL_LSB or out1.shape != (h, w, 3) or tuple(out_b.shape) != (batch, h, w, 3):
+            raise AssertionError(f"{name}: {db:.2f} dB from the plain path (baseline {base_lsb} LSB)")
+        vis = wall_ms(lambda a=animal: a.visualize(host[0]), species_reps)
+        bat = wall_ms(lambda a=animal: (a.visualize_batch_device(frames), sync(device)), species_reps)
+        row = dict(psnr_plain_db=db, baseline_max_lsb_plain=base_lsb,
+                   max_lsb_batch_vs_frame=max_lsb(out_b[0], torch.from_numpy(out1).to(device)),
+                   visualize_ms=vis, visualize_fps=1e3 / vis["median"], batch_ms=bat,
+                   batch_fps=batch * 1e3 / bat["median"])
+        result["species"][name] = row
+        log(f"[main] {name:<19} {db:.2f} dB vs plain (baseline {base_lsb} LSB), batch[0] vs visualize max "
+            f"{row['max_lsb_batch_vs_frame']} LSB; visualize {row['visualize_fps']:.2f} fps (median "
+            f"{vis['median']:.1f} ms), batch of {batch} on device {row['batch_fps']:.2f} fps (median "
+            f"{bat['median']:.1f} ms)")
+    return result
+
+
 def wall_ms(fn, reps: int) -> dict:
     """Host-clock milliseconds of ``reps`` calls, each ending synchronized:
     median and p90 (the highest percentile with 10 samples beyond it at 100
@@ -851,14 +1010,16 @@ def profile_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, names=PROFILE_S
     """Where the time of one species goes: ``torch.profiler`` device time by
     name (kernels, copies, reductions) over a few calls of each entry point,
     beside the host-clock time of the same window. The profiler's own cost
-    is in the wall time. Then the same for the 1080p MST++ forward and for
-    kestrel with MST++."""
+    is in the wall time. Then the same for the 1080p MST++ forward, kestrel
+    with MST++, the 1080p MST-L forward and mantis shrimp with MST-L."""
     from torch.profiler import ProfilerActivity, profile
 
+    from animal_vision_tpu_torch.models import zoo
     from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
-    from animal_vision_tpu_torch.models.providers import attach_mst
+    from animal_vision_tpu_torch.models.providers import attach_model, attach_mst
     from animal_vision_tpu_torch.species import get_animal
     from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
+    from animal_vision_tpu_torch.species.uv.mantis_shrimp import MantisShrimp
 
     rng = np.random.default_rng(SEED + 2)
     host = rng.integers(0, 256, (batch, *hw, 3), dtype=np.uint8)
@@ -873,12 +1034,18 @@ def profile_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, names=PROFILE_S
     groups.append(("mst++", {"forward": lambda: model(x)}))
     groups.append(("kestrel+mst", {"visualize": lambda: kestrel.visualize(host[0]),
                                    f"batch{batch}": lambda: kestrel.visualize_batch_device(frames)}))
+    mst_l = zoo.model_generator("mst", device=device, seed=SEED)
+    mantis = attach_model(MantisShrimp(device), "mst")
+    groups.append(("mst-l", {"forward": lambda: mst_l(x)}))
+    groups.append(("mantis+mst-l", {"visualize": lambda: mantis.visualize(host[0]),
+                                    f"batch{batch}": lambda: mantis.visualize_batch_device(frames)}))
     out = {}
     for name, entries in groups:
         for label, fn in entries.items():
-            fn()
+            with torch.no_grad():
+                fn()
             sync(device)
-            with profile(activities=activities, acc_events=True) as prof:
+            with torch.no_grad(), profile(activities=activities, acc_events=True) as prof:
                 t0 = time.perf_counter()
                 for _ in range(reps):
                     fn()
@@ -902,7 +1069,8 @@ def profile_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, names=PROFILE_S
     return out
 
 
-def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], launches: dict) -> dict:
+def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], ffn_rows: list[dict],
+            launches: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
     plain time, bound and library time of its heaviest main-path case at
     1080p. Launches come from the main-path run of the kernel's species."""
@@ -938,6 +1106,13 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
             library_ms=rep["library_ms"],
             **({"max_rel_err": max(r["err"] for r in rows)} if kernel == "attn_stats_kernel" else {}),
         ))
+    rep = next(r for r in ffn_rows if r["case"] == "C=31" and r["point"] == "1080p")
+    out.append(dict(
+        name="ffn_kernel", route="cuda", source=SOURCES["ffn_kernel"], replaces=REPLACES["ffn_kernel"],
+        launches=launches["ffn_kernel"], max_abs_err=max(r["max_abs_err"] for r in ffn_rows),
+        case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']}",
+        ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=None,
+    ))
     return {"kernels": out}
 
 
@@ -955,9 +1130,11 @@ def main() -> int:
     kernel_rows = kernels_phase(device)
     blur_rows = blur_phase(device)
     mst_rows = mst_kernels_phase(device)
+    ffn_rows = ffn_phase(device)
     main_run = main_path_phase(device)
     uv_run = uv_main_path_phase(device)
     mst_run = mst_main_path_phase(device)
+    mst_l_run = mst_l_main_path_phase(device)
     profile_run = profile_phase(device)
     if any(m.startswith("jax") or m == "animal_vision_tpu" or m.startswith("animal_vision_tpu.")
            for m in sys.modules):
@@ -968,12 +1145,13 @@ def main() -> int:
     log(f"[main] {len(uv_run['species'])}-UV-species harmonic mean at {MAIN_HW[0]}x{MAIN_HW[1]}, batch of {BATCH} "
         f"on the device: {uv_run['hm_fps']:.1f} fps; through visualize: {uv_run['hm_visualize_fps']:.1f} fps")
     launches = {**main_run["launches"], "blur_uv": uv_run["launches"]["blur_uv"],
-                **{k: mst_run["launches"][k] for k in MST_PER_FORWARD}}
-    kernels = summary(kernel_rows, blur_rows, mst_rows, launches)
+                **{k: mst_run["launches"][k] for k in MST_PER_FORWARD}, "ffn_kernel": mst_l_run["launches"]["ffn"]}
+    kernels = summary(kernel_rows, blur_rows, mst_rows, ffn_rows, launches)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(device=info, build=build, kernel_cases=kernel_rows, blur_cases=blur_rows,
-                                      mst_cases=mst_rows, main_path=main_run, uv_main_path=uv_run,
-                                      mst_main_path=mst_run, profile=profile_run,
+                                      mst_cases=mst_rows, ffn_cases=ffn_rows, main_path=main_run,
+                                      uv_main_path=uv_run, mst_main_path=mst_run, mst_l_main_path=mst_l_run,
+                                      profile=profile_run,
                                       kernels=kernels["kernels"], seconds=time.perf_counter() - t0), indent=1))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(info["card"])

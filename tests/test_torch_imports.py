@@ -51,7 +51,11 @@ def test_port_imports_no_jax_package_or_cv2():
         "animal_vision_tpu_torch.species.uv.reindeer", "animal_vision_tpu_torch.species.uv.kestrel",
         "animal_vision_tpu_torch.ops.fused_msab", "animal_vision_tpu_torch.models.mst_plus_plus",
         "animal_vision_tpu_torch.models.providers",
-    }
+        "animal_vision_tpu_torch.ops.fused_mst", "animal_vision_tpu_torch.models.mst",
+        "animal_vision_tpu_torch.models.zoo",
+    } | {f"animal_vision_tpu_torch.species.uv.{n}" for n in (
+        "mantis_shrimp", "jumping_spider", "dragonfly", "hummingbird", "damselfish", "anableps", "anchovy",
+        "guppy", "morpho", "heliconius", "pieris")}
     assert expected <= set(report["modules"])
 
 

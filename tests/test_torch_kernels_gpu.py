@@ -13,15 +13,18 @@ import pytest
 import torch
 
 from animal_vision_tpu_torch.core import blur, color
+from animal_vision_tpu_torch.models import zoo
 from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
-from animal_vision_tpu_torch.models.providers import attach_mst
+from animal_vision_tpu_torch.models.providers import attach_model, attach_mst
 from animal_vision_tpu_torch.ops import fused_blur as B
 from animal_vision_tpu_torch.ops import fused_msab as M
+from animal_vision_tpu_torch.ops import fused_mst as T
 from animal_vision_tpu_torch.ops import fused_nonuv as F
 from animal_vision_tpu_torch.species import NON_UV_NAMES, PORTED_UV_NAMES, get_animal
 from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS, Cat
 from animal_vision_tpu_torch.species.uv.goldfish import Goldfish
 from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
+from animal_vision_tpu_torch.species.uv.mantis_shrimp import MantisShrimp
 
 pytestmark = pytest.mark.gpu
 
@@ -43,7 +46,7 @@ def no_plain_on_cuda(monkeypatch):
     originals = {}
     for mod, name in ((F, "iso_u8_plain"), (F, "streak_u8_plain"), (F, "pointwise_u8_plain"),
                       (B, "blur_uv_plain"), (M, "conv_plain"), (M, "attn_stats_plain"),
-                      (M, "msab_apply_plain"), (M, "up_fuse_plain")):
+                      (M, "msab_apply_plain"), (M, "up_fuse_plain"), (T, "ffn_plain")):
         fn = getattr(mod, name)
         originals[name] = fn
 
@@ -293,4 +296,58 @@ def test_uv_species_with_mst_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, cls
     _, out_g = attach_mst(cls(cuda), load_shipped(cuda)).visualize(frame)
     assert M.LAUNCHES["msab_apply_kernel"] == before + 15
     _, out_c = attach_mst(cls("cpu"), load_shipped("cpu")).visualize(frame)
+    assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0
+
+
+# --- MST-L's FFN kernel (ops/fused_mst.py) and the model ---
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 9, 13), (1, 8, 16), (1, 17, 33), (2, 40, 67)])
+@pytest.mark.parametrize("c", T.FFN_CHANNELS)
+def test_ffn_kernel(cuda, no_plain_on_cuda, shape, c):
+    rng = np.random.default_rng(c + 3)
+    x = _randn(rng, *shape, c, scale=0.5)
+    ws = (1.0 + _randn(rng, c, scale=0.2), _randn(rng, c, scale=0.2), _randn(rng, c, 4 * c, scale=0.2),
+          _randn(rng, 3, 3, 4 * c, scale=0.2), _randn(rng, 4 * c, c, scale=0.2))
+    before = T.LAUNCHES["ffn"]
+    got = T.ffn(x.to(cuda), *(t.to(cuda) for t in ws))
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["ffn"] == before + 1
+    want = no_plain_on_cuda["ffn_plain"](x, *ws)
+    assert got.shape == want.shape
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def test_ffn_tile_raises_above_shared_memory(cuda):
+    """This card takes the 8x16 tile up to C = 62 and 8x8 at C = 124; where
+    no tile fits, the wrapper raises and names C and the tile."""
+    limit = T.smem_limit(torch.cuda.current_device())
+    assert [T.tile_for(c, limit) for c in T.FFN_CHANNELS] == [(8, 16), (8, 16), (8, 8)]
+    with pytest.raises(ValueError, match="C = 124 .* 4x8 tile"):
+        T.tile_for(124, 48 * 1024)
+
+
+def test_mst_l_on_card_vs_cpu(cuda, no_plain_on_cuda):
+    """MST-L with seeded weights at 40x67 (padded to 40x72): 27 FFN kernel
+    launches per forward, within 5e-4 of max |y| of the CPU forward."""
+    gpu = zoo.model_generator("mst", device=cuda)
+    cpu = zoo.model_generator("mst", device="cpu")
+    x = torch.from_numpy(np.random.default_rng(9).random((1, 40, 67, 3), dtype=np.float32))
+    T.reset_launches()
+    with torch.no_grad():
+        got = gpu(x.to(cuda))
+        torch.cuda.synchronize()
+        assert T.LAUNCHES["ffn"] == 27
+        want = cpu(x)
+    assert got.shape == want.shape == (1, 40, 67, 31)
+    assert (got.cpu() - want).abs().max().item() <= 5e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("cls", [Kestrel, MantisShrimp])
+def test_uv_species_with_mst_l_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, cls):
+    frame = _frames((1, 72, 130), "cpu", seed=10)[0].numpy()
+    before = T.LAUNCHES["ffn"]
+    _, out_g = attach_model(cls(cuda), "mst").visualize(frame)
+    assert T.LAUNCHES["ffn"] == before + 27
+    _, out_c = attach_model(cls("cpu"), "mst").visualize(frame)
     assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0

@@ -29,6 +29,9 @@ from animal_vision_tpu_torch.species import (
 from animal_vision_tpu_torch.species.uv.honeybee import HoneyBee
 
 MIN_DB = 40.0
+#: the four species of the UV classic slice; the others have their own files
+#: (``tests/test_torch_uv_species_{fish,butterflies,unique}.py``)
+NAMES = ["honeybee", "reindeer", "goldfish", "kestrel"]
 CUSTOM = np.array([[0.2, 0.5, 0.3], [0.1, 0.7, 0.2], [0.6, 0.1, 0.3]], np.float32)
 
 
@@ -45,14 +48,14 @@ def _check(got, want, psnr_fn, what):
     assert _lsb(base_t, base_w) <= 1, what
 
 
-@pytest.mark.parametrize("name", PORTED_UV_NAMES)
+@pytest.mark.parametrize("name", NAMES)
 def test_species_vs_jax_and_oracle(name, img_u8, psnr_fn):
     got = get_animal(name, device="cpu").visualize(img_u8)
     _check(got, jax_animal(name).visualize(img_u8), psnr_fn, f"{name} vs JAX")
     _check(got, getattr(oracles_uv, f"{name}_pipeline")(img_u8), psnr_fn, f"{name} vs oracle")
 
 
-@pytest.mark.parametrize("name", PORTED_UV_NAMES)
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("shape", [(50, 70), (9, 13)])
 def test_odd_shapes_vs_jax(name, shape, psnr_fn):
     frame = np.random.default_rng(sum(shape)).integers(0, 256, size=(*shape, 3), dtype=np.uint8)
@@ -75,7 +78,7 @@ def test_honeybee_options(kw, img_u8, psnr_fn):
     _check(HoneyBee("cpu", **kw).visualize(img_u8), JHoneyBee(**kw).visualize(img_u8), psnr_fn, str(kw))
 
 
-@pytest.mark.parametrize("name", PORTED_UV_NAMES)
+@pytest.mark.parametrize("name", NAMES)
 def test_float_frames_vs_jax(name, img_f32):
     base_t, out_t = get_animal(name, device="cpu").visualize(img_f32)
     base_j, out_j = jax_animal(name).visualize(img_f32)
@@ -85,7 +88,7 @@ def test_float_frames_vs_jax(name, img_f32):
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "float32"])
-@pytest.mark.parametrize("name", PORTED_UV_NAMES)
+@pytest.mark.parametrize("name", NAMES)
 def test_visualize_batch_equals_frames(name, dtype, img_u8):
     """Three frames; as float32, the second has max <= 1, so to_float01
     divides the other two by 255 and leaves it as it is."""
@@ -106,7 +109,7 @@ def test_visualize_batch_equals_frames(name, dtype, img_u8):
     np.testing.assert_array_equal(np.asarray(dev_base), base_b)
 
 
-@pytest.mark.parametrize("name", PORTED_UV_NAMES)
+@pytest.mark.parametrize("name", NAMES)
 def test_plain_transform_matches_kernel_path(name, img_u8):
     """On the CPU both take the plain blur: the same chain, the same bits
     (chip_smoke.py holds the two apart on the card)."""
@@ -120,7 +123,7 @@ def test_registry_lists_only_ported_uv_species():
     assert PORTED_UV_NAMES == UV_NAMES + UNIQUE_UV_NAMES
     assert UV_NAMES == [n for n in J_UV if n in PORTED_UV_NAMES]
     assert UNIQUE_UV_NAMES == [n for n in J_UNIQUE if n in PORTED_UV_NAMES]
-    assert sorted(PORTED_UV_NAMES) == ["goldfish", "honeybee", "kestrel", "reindeer"]
+    assert UV_NAMES == [n for n in J_UV if n != "rat_uv"] and UNIQUE_UV_NAMES == J_UNIQUE
     assert animal_names() == sorted(NON_UV_NAMES + PORTED_UV_NAMES)
     for n in PORTED_UV_NAMES:
         assert display_name(n) == j_display(n)
@@ -133,11 +136,11 @@ def test_uv_default_device_needs_cuda(monkeypatch):
         get_animal("kestrel")
 
 
-def test_hsi_provider_is_not_ported():
-    """Named when setting a provider raised. A UV animal starts on the
-    analytic upsampler; ``use_hsi_provider`` swaps in a provider and its
-    band grid and clears the built programs (``tests/test_torch_mst_*.py``
-    hold MST++ as that provider against the JAX package)."""
+def test_use_hsi_provider_swaps_the_provider():
+    """A UV animal starts on the analytic upsampler; ``use_hsi_provider``
+    swaps in a provider and its band grid and clears the built programs
+    (``tests/test_torch_mst_*.py`` hold MST++ and MST-L as that provider
+    against the JAX package)."""
     animal = get_animal("goldfish", device="cpu").__class__("cpu")
     assert animal.hsi_provider is None
     animal.transform((8, 8, 3))
