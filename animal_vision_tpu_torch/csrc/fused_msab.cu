@@ -1,7 +1,7 @@
 // The MST++ kernels, hand-written for Hopper (sm_90a).
 //
 // Replace the Pallas kernels of animal_vision_tpu/ops/fused_msab.py:
-// - conv_kernel<K, S>: _conv3_io_kernel (conv_in, 3 -> 31), _conv3_kernel,
+// - conv_kernel<K, S, Cin, Cout>: _conv3_io_kernel (conv_in, 3 -> 31), _conv3_kernel,
 //   _conv3_res_kernel and _conv3_stats_kernel (3x3 C -> C, optional
 //   residual), _down4_kernel and _down4_stats_kernel (4x4 stride 2, C -> 2C);
 // - attn_stats_kernel + stats_reduce_kernel: _stats_kernel (MSAB pass A) and
@@ -20,15 +20,43 @@
 // 8 C bytes of traffic: 90 flops per byte at C = 31, above the card's 20 for
 // float32 outside the tensor cores).
 //
-// Design. Every product runs as a "warp GEMM" (warp_gemm below): an input
-// tile sits in shared memory planar, [channel][pixel], the 32 lanes of a
-// warp take 32 pixels each step and the warp takes groups of 4 consecutive
-// outputs, so a lane reads conflict-free shared memory and every lane of a
-// warp reads the same weight (one broadcast load, from L1). Weights stay in
-// device memory (L1/L2-resident; 1.62 M parameters in all).
-// - conv_kernel: a block stages its input tile with the zero pad (all Cin
-//   channels) and sums over (Cin, ky, kx) for an 8x16 (K = 3) or 8x8 (K = 4)
-//   output tile; the residual is added in the epilogue.
+// conv_kernel<K, S, Cin, Cout> is an implicit GEMM on the tensor cores.
+// Bound: the 3x3 and 4x4 convolutions do 2 K^2 Cin multiply-adds per
+// output value (558 flops per output byte at 31 -> 31), so in float32
+// outside the tensor cores they are bound by operations (0.54 ms for
+// 31 -> 31 at 1080p) and cuDNN's float32 path took 1.7 ms; conv_in
+// (3 -> 31) is bound by its 257 MB of output (0.08 ms). Design:
+// - M = a TH x TW tile of output pixels, N = Cout padded to 32/64/128, the
+//   inner dimension (tap, Cin) walked in steps of one tap and 32 input
+//   channels. conv_in flattens its 27 (tap, channel) pairs into one step
+//   of 32 (an im2col tile), instead of padding 3 channels to 8 per tap.
+// - The input halo tile is staged once (per 32 channels) in shared memory,
+//   pixel-major with the channels contiguous at a pitch of 36 floats, by
+//   cp.async with zero fill for the pad ring and the padded channels; at
+//   stride 2 its even and odd columns are kept apart, so the 8 pixels of a
+//   fragment are 8 consecutive slots and the fragment loads hit 32 banks.
+// - Each step's (32 x Cout) weight slab comes through a cp.async ring of
+//   two or three slabs (the next loads while this one is multiplied; at
+//   31 -> 31 all nine stay), padded in shared memory, so the host packs
+//   nothing.
+// - 8 warps in a 2D grid over (M, N), each a 32 x 32 warp tile: no warp
+//   re-reads the input tile per output group. Products are 3xTF32
+//   mma.sync.m16n8k8 (mma_tf32.cuh), each step's sum added into the
+//   float32 accumulator apart.
+// - Epilogue: the accumulators go to a (pixel, Cout) tile in shared
+//   memory, then each tile row, which is one contiguous run of NHWC
+//   output, is stored (and the residual read) by consecutive threads at
+//   consecutive addresses.
+// - Tiles per shape (ConvCfg): 8x32 at K = 3, 8x16 at 31 -> 62, 4x16 at
+//   62 -> 124; two blocks fit an SM in each (95 / 107 / 101 KB), so the
+//   68x120 level of the 4 x 272 x 480 point keeps two blocks per SM.
+//
+// The other three kernels run their products as "warp GEMMs" (warp_gemm
+// below): an input tile sits in shared memory planar, [channel][pixel], the
+// 32 lanes of a warp take 32 pixels each step and the warp takes groups of
+// 4 consecutive outputs, so a lane reads conflict-free shared memory and
+// every lane of a warp reads the same weight (one broadcast load, from L1).
+// Their weights stay in device memory (L1/L2-resident).
 // - attn_stats_kernel: a fixed number of blocks per frame (a function of
 //   the pixel count only) walk 32-pixel tiles: q and k of the tile into
 //   shared memory, then each thread accumulates its entries of the
@@ -60,6 +88,7 @@
 #include <stddef.h>
 
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -123,109 +152,201 @@ __device__ __forceinline__ void warp_gemm(const float* in, int in_pitch, int nk,
 // conv_kernel: out = conv(x, w) (+ residual), zero pad 1, no bias.
 // ---------------------------------------------------------------------------
 
-template <int K, int S>
-struct ConvTile;
+// The inner dimension is walked in steps of kConvK: one tap's 32 input
+// channels, or conv_in's 27 flattened (tap, channel) pairs.
+constexpr int kConvK = 32;
+
+// Output tile (kH x kW pixels), the warps along M (the rest along N) and
+// the weight slabs in flight (kStages) per shape; every warp takes a
+// 32 x 32 tile of (pixels, output channels). At 31 -> 31 all nine slabs
+// are requested up front and stay resident; 62 -> 124 keeps two ahead.
+template <int K, int S, int CIN, int COUT>
+struct ConvCfg;
 template <>
-struct ConvTile<3, 1> {
-  static constexpr int kH = 8, kW = 16;
+struct ConvCfg<3, 1, 3, 31> {
+  static constexpr int kH = 8, kW = 32, kWarpsM = 8, kStages = 2;
 };
 template <>
-struct ConvTile<4, 2> {
-  static constexpr int kH = 8, kW = 8;
+struct ConvCfg<3, 1, 31, 31> {
+  static constexpr int kH = 8, kW = 32, kWarpsM = 8, kStages = 9;
+};
+template <>
+struct ConvCfg<4, 2, 31, 62> {
+  static constexpr int kH = 8, kW = 16, kWarpsM = 4, kStages = 2;
+};
+template <>
+struct ConvCfg<4, 2, 62, 124> {
+  static constexpr int kH = 4, kW = 16, kWarpsM = 2, kStages = 3;
 };
 
-template <int K, int S>
-__host__ __device__ constexpr int conv_in_h() { return (ConvTile<K, S>::kH - 1) * S + K; }
-template <int K, int S>
-__host__ __device__ constexpr int conv_in_w() { return (ConvTile<K, S>::kW - 1) * S + K; }
+template <int K, int S, int CIN, int COUT>
+struct ConvShape {
+  using Cfg = ConvCfg<K, S, CIN, COUT>;
+  static constexpr int TH = Cfg::kH, TW = Cfg::kW, WM = Cfg::kWarpsM, WN = kWarps / WM;
+  static constexpr int NP = WN * 32;                   // Cout padded
+  static constexpr bool FLAT = K * K * CIN <= kConvK;  // conv_in: one im2col step
+  static constexpr int NSTEP = FLAT ? 1 : cdiv(CIN, kConvK) * K * K;
+  static constexpr int NSTAGE = Cfg::kStages, NBUF = NSTAGE < NSTEP ? NSTAGE : NSTEP;
+  static constexpr int IH = (TH - 1) * S + K, IW = (TW - 1) * S + K;  // input halo tile
+  static constexpr int PA = kConvK + 4;  // floats per A row: 4 (mod 32), conflict-free fragments
+  static constexpr int PB = NP + 8;      // floats per weight row: 8 (mod 32)
+  static constexpr int PO = NP + 8;      // floats per output-tile row: float2 stores conflict-free
+  static constexpr int A_ROWS = FLAT ? TH * TW : IH * IW;
+  static constexpr int A_FLOATS = A_ROWS * PA > TH * TW * PO ? A_ROWS * PA : TH * TW * PO;
+  static constexpr int B_FLOATS = kConvK * PB;
+  static constexpr int SMEM_FLOATS = A_FLOATS + NBUF * B_FLOATS;
+  static_assert(TH * TW == WM * 32 && NP >= COUT && NP - COUT < 8, "warp tiles must cover the block tile");
+  static_assert(IW % S == 0 && TW % 16 == 0, "column parity planes and 16-pixel fragments within a row");
+  static_assert(NSTAGE >= 2, "a ring of at least two slabs");
+};
 
-template <int K, int S>
-__global__ void __launch_bounds__(kThreads)
+// out = conv(x, w) (+ residual), zero pad 1, no bias; one block per TH x TW
+// output tile of one frame.
+template <int K, int S, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads, 2)
 conv_kernel(const float* __restrict__ x, const float* __restrict__ wt, const float* __restrict__ res,
-            float* __restrict__ out, int h, int w, int cin, int cout, int ho, int wo) {
-  constexpr int TH = ConvTile<K, S>::kH, TW = ConvTile<K, S>::kW;
-  constexpr int IH = conv_in_h<K, S>(), IW = conv_in_w<K, S>(), NI = IH * IW;
-  constexpr int NP = TH * TW;
-  extern __shared__ float s_in[];  // (cin, IH, IW)
+            float* __restrict__ out, int h, int w, int ho, int wo) {
+  using P = ConvShape<K, S, CIN, COUT>;
+  constexpr int TH = P::TH, TW = P::TW, IW = P::IW, PA = P::PA, PB = P::PB, PO = P::PO;
+  extern __shared__ __align__(16) float conv_smem[];
+  float* s_a = conv_smem;               // A: input halo tile (pixel slot, 32 channels) or im2col rows
+  float* s_b = conv_smem + P::A_FLOATS;  // ring of NBUF weight slabs (32 x NP)
   const int n = blockIdx.z;
   const int ox0 = blockIdx.x * TW, oy0 = blockIdx.y * TH;
   const int iy0 = oy0 * S - 1, ix0 = ox0 * S - 1;  // pad 1
-  const float* src = x + static_cast<size_t>(n) * h * w * cin;
-  for (int i = threadIdx.x; i < NI * cin; i += kThreads) {
-    const int p = i / cin, c = i - p * cin;
-    const int gy = iy0 + p / IW, gx = ix0 + p % IW;
-    s_in[c * NI + p] =
-        (gy >= 0 && gy < h && gx >= 0 && gx < w) ? src[(static_cast<size_t>(gy) * w + gx) * cin + c] : 0.f;
+  const float* src = x + static_cast<size_t>(n) * h * w * CIN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % P::WM, wn = warp / P::WM;
+  auto inside = [&](int gy, int gx) { return gy >= 0 && gy < h && gx >= 0 && gx < w; };
+
+  // A for input channels [32 ch, 32 ch + 32): slot iy * IW + (ix % S) * (IW / S)
+  // + ix / S holds input pixel (iy, ix) of the halo tile; zero outside the
+  // image and beyond Cin.
+  auto load_a = [&](int ch) {
+    if constexpr (P::FLAT) {
+      for (int i = tid; i < P::A_ROWS * kConvK; i += kThreads) {
+        const int r = i / kConvK, k = i % kConvK;
+        const int tap = k / CIN, c = k % CIN;
+        const int gy = iy0 + (r / TW) * S + tap / K, gx = ix0 + (r % TW) * S + tap % K;
+        const bool ok = k < K * K * CIN && inside(gy, gx);
+        tc::cp_async<4>(s_a + r * PA + k, ok ? src + (static_cast<size_t>(gy) * w + gx) * CIN + c : src, ok);
+      }
+    } else {
+      constexpr int V = tc::copy_vec(CIN), UPS = kConvK / V;  // copies per slot
+      for (int i = tid; i < P::A_ROWS * UPS; i += kThreads) {
+        const int slot = i / UPS, u = i % UPS, c = ch * kConvK + u * V;
+        const int iy = slot / IW, rem = slot % IW;
+        const int gy = iy0 + iy, gx = ix0 + (rem % (IW / S)) * S + rem / (IW / S);
+        const bool ok = c < CIN && inside(gy, gx);
+        tc::cp_async<4 * V>(s_a + slot * PA + u * V,
+                            ok ? src + (static_cast<size_t>(gy) * w + gx) * CIN + c : src, ok);
+      }
+    }
+  };
+  // The weight slab of step s: rows (tap, 32 channels) or the flattened
+  // (tap, channel) pairs, Cout columns; zero beyond both.
+  auto load_b = [&](int s, float* dst) {
+    constexpr int V = tc::copy_vec(COUT), UPR = P::NP / V;
+    const int tap = P::FLAT ? 0 : s % (K * K), c0 = P::FLAT ? 0 : (s / (K * K)) * kConvK;
+    for (int i = tid; i < kConvK * UPR; i += kThreads) {
+      const int kk = i / UPR, col = (i % UPR) * V;
+      const int row = P::FLAT ? kk : tap * CIN + c0 + kk;
+      const bool ok = col < COUT && (P::FLAT ? kk < K * K * CIN : c0 + kk < CIN);
+      tc::cp_async<4 * V>(dst + kk * PB + col, ok ? wt + static_cast<size_t>(row) * COUT + col : wt, ok);
+    }
+  };
+
+  // The A rows of this lane: m-tile i, row g (h = 0) or g + 8 (h = 1).
+  int base[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = wm * 32 + i * 16 + hf * 8 + g;
+      base[i][hf] = P::FLAT ? r * PA : ((r / TW) * S * IW + r % TW) * PA;
+    }
+
+  // Group 0: A and slab 0; then one group per slab, NSTAGE - 1 ahead.
+  float acc[2][4][4] = {};
+  load_a(0);
+#pragma unroll
+  for (int s = 0; s < P::NSTAGE - 1; ++s) {
+    if (s < P::NSTEP) load_b(s, s_b + s * P::B_FLOATS);
+    tc::cp_async_commit();
   }
+  for (int s = 0; s < P::NSTEP; ++s) {
+    tc::cp_async_wait<P::NSTAGE - 2>();
+    __syncthreads();  // step s's slab (and A) landed; every warp is done with step s - 1
+    const bool next = s + 1 < P::NSTEP;
+    if (s + P::NSTAGE - 1 < P::NSTEP) load_b(s + P::NSTAGE - 1, s_b + ((s + P::NSTAGE - 1) % P::NBUF) * P::B_FLOATS);
+    tc::cp_async_commit();
+    const float* sb = s_b + (s % P::NBUF) * P::B_FLOATS + wn * 32;
+    const int tap = P::FLAT ? 0 : s % (K * K), dy = tap / K, dx = tap % K;
+    const int off = P::FLAT ? 0 : (dy * IW + (dx % S) * (IW / S) + dx / S) * PA;
+    float part[2][4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kConvK; kk += 8) {
+      tc::FragA a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) a[i] = tc::load_a(s_a + base[i][0] + off + kk, s_a + base[i][1] + off + kk, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const tc::FragB b = tc::load_b(sb + kk * PB + j * 8, PB, g, t);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) tc::mma3(part[i][j], a[i], b);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
+    if (!P::FLAT && next && (s + 1) % (K * K) == 0) {  // the next 32 input channels
+      __syncthreads();
+      load_a((s + 1) / (K * K));
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+    }
+  }
+
+  // Epilogue: accumulators -> (pixel, Cout) tile in shared memory -> each
+  // output row's contiguous NHWC run, with the residual.
   __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int NS = NP / 32;
-  int off[NS];
+  float* s_o = s_a;
 #pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    const int p = lane + 32 * s;
-    off[s] = (p / TW) * S * IW + (p % TW) * S;
-  }
-  float* dst = out + static_cast<size_t>(n) * ho * wo * cout;
-  const float* rsrc = res == nullptr ? nullptr : res + static_cast<size_t>(n) * ho * wo * cout;
-  for (int o0 = warp * kGroup; o0 < cout; o0 += kWarps * kGroup) {
-    const int nq = min(kGroup, cout - o0);
-    float acc[NS][kGroup];
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int s = 0; s < NS; ++s)
-#pragma unroll
-      for (int q = 0; q < kGroup; ++q) acc[s][q] = 0.f;
-    for (int c = 0; c < cin; ++c) {
-      const float* plane = s_in + c * NI;
-#pragma unroll
-      for (int dy = 0; dy < K; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < K; ++dx) {
-          const float* wk = wt + (static_cast<size_t>((dy * K + dx) * cin + c)) * cout + o0;
-          float b[kGroup];
-#pragma unroll
-          for (int q = 0; q < kGroup; ++q) b[q] = q < nq ? __ldg(wk + q) : 0.f;
-#pragma unroll
-          for (int s = 0; s < NS; ++s) {
-            const float a = plane[off[s] + dy * IW + dx];
-#pragma unroll
-            for (int q = 0; q < kGroup; ++q) acc[s][q] = fmaf(a, b[q], acc[s][q]);
-          }
-        }
-      }
+    for (int j = 0; j < 4; ++j) {
+      const int r = wm * 32 + i * 16 + g, col = wn * 32 + j * 8 + 2 * t;
+      *reinterpret_cast<float2*>(s_o + r * PO + col) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(s_o + (r + 8) * PO + col) = make_float2(acc[i][j][2], acc[i][j][3]);
     }
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int p = lane + 32 * s;
-      const int oy = oy0 + p / TW, ox = ox0 + p % TW;
-      if (oy >= ho || ox >= wo) continue;
-      const size_t base = (static_cast<size_t>(oy) * wo + ox) * cout + o0;
-#pragma unroll
-      for (int q = 0; q < kGroup; ++q) {
-        if (q >= nq) continue;
-        dst[base + q] = rsrc == nullptr ? acc[s][q] : acc[s][q] + rsrc[base + q];
-      }
+  __syncthreads();
+  const int run = min(TW, wo - ox0) * COUT;
+  for (int ly = 0; ly < TH && oy0 + ly < ho; ++ly) {
+    const size_t row = ((static_cast<size_t>(n) * ho + oy0 + ly) * wo + ox0) * COUT;
+    for (int e = tid; e < run; e += kThreads) {
+      const int p = e / COUT, c = e - p * COUT;
+      const float v = s_o[(ly * TW + p) * PO + c];
+      out[row + e] = res == nullptr ? v : v + __ldg(res + row + e);
     }
   }
 }
 
-template <int K, int S>
-size_t conv_smem_bytes(int cin) {
-  return sizeof(float) * static_cast<size_t>(conv_in_h<K, S>()) * conv_in_w<K, S>() * cin;
-}
-
-template <int K, int S>
-int launch_conv(const float* x, const float* wt, const float* res, float* out, int n, int h, int w, int cin,
-                int cout, cudaStream_t stream) {
+template <int K, int S, int CIN, int COUT>
+int launch_conv(const float* x, const float* wt, const float* res, float* out, int n, int h, int w,
+                cudaStream_t stream) {
+  using P = ConvShape<K, S, CIN, COUT>;
   const int ho = (h + 2 - K) / S + 1, wo = (w + 2 - K) / S + 1;
   if (ho < 1 || wo < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = conv_smem_bytes<K, S>(cin);
-  cudaError_t err =
-      cudaFuncSetAttribute(conv_kernel<K, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const size_t smem = sizeof(float) * P::SMEM_FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(conv_kernel<K, S, CIN, COUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(cdiv(wo, ConvTile<K, S>::kW), cdiv(ho, ConvTile<K, S>::kH), n);
-  conv_kernel<K, S><<<grid, kThreads, smem, stream>>>(x, wt, res, out, h, w, cin, cout, ho, wo);
+  const dim3 grid(cdiv(wo, P::TW), cdiv(ho, P::TH), n);
+  conv_kernel<K, S, CIN, COUT><<<grid, kThreads, smem, stream>>>(x, wt, res, out, h, w, ho, wo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -567,7 +688,8 @@ bool frames_ok(int n, int h, int w) { return n >= 1 && n <= 65535 && h >= 1 && w
 extern "C" {
 
 // conv: x (n, h, w, cin), wt (k, k, cin, cout), res (n, ho, wo, cout) or
-// null, out (n, ho, wo, cout); k = 3 (stride 1) or 4 (stride 2), pad 1.
+// null, out (n, ho, wo, cout); k = 3 (stride 1) or 4 (stride 2), pad 1;
+// (k, cin, cout) one of (3, 3, 31), (3, 31, 31), (4, 31, 62), (4, 62, 124).
 int av_msab_conv(const void* x, const void* wt, const void* res, void* out, int n, int h, int w, int cin,
                  int cout, int k, void* stream) {
   if (!frames_ok(n, h, w) || cin < 1 || cout < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -576,9 +698,21 @@ int av_msab_conv(const void* x, const void* wt, const void* res, void* out, int 
   const auto* wf = static_cast<const float*>(wt);
   const auto* rf = static_cast<const float*>(res);
   auto* of = static_cast<float*>(out);
-  if (k == 3) return launch_conv<3, 1>(xf, wf, rf, of, n, h, w, cin, cout, s);
-  if (k == 4) return launch_conv<4, 2>(xf, wf, rf, of, n, h, w, cin, cout, s);
+  if (k == 3 && cin == 3 && cout == 31) return launch_conv<3, 1, 3, 31>(xf, wf, rf, of, n, h, w, s);
+  if (k == 3 && cin == 31 && cout == 31) return launch_conv<3, 1, 31, 31>(xf, wf, rf, of, n, h, w, s);
+  if (k == 4 && cin == 31 && cout == 62) return launch_conv<4, 2, 31, 62>(xf, wf, rf, of, n, h, w, s);
+  if (k == 4 && cin == 62 && cout == 124) return launch_conv<4, 2, 62, 124>(xf, wf, rf, of, n, h, w, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of one conv block for (k, cin, cout), in bytes; 0
+// for a shape the kernel is not built for.
+int av_msab_conv_smem(int k, int cin, int cout) {
+  if (k == 3 && cin == 3 && cout == 31) return sizeof(float) * ConvShape<3, 1, 3, 31>::SMEM_FLOATS;
+  if (k == 3 && cin == 31 && cout == 31) return sizeof(float) * ConvShape<3, 1, 31, 31>::SMEM_FLOATS;
+  if (k == 4 && cin == 31 && cout == 62) return sizeof(float) * ConvShape<4, 2, 31, 62>::SMEM_FLOATS;
+  if (k == 4 && cin == 62 && cout == 124) return sizeof(float) * ConvShape<4, 2, 62, 124>::SMEM_FLOATS;
+  return 0;
 }
 
 // stats: x (n, npix, c), wq/wk (c, c), part (n, nblk, c*31 + 2c) scratch,

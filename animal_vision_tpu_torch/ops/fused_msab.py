@@ -7,7 +7,8 @@ carry every convolution and MSAB block of ``models/mst_plus_plus.py`` on
 - ``conv``: a K x K convolution with zero pad 1, no bias, an optional
   residual added to its output: 3x3 stride 1 (``conv_in`` 3 -> 31, the
   stage embeddings and mappings, ``conv_out``) and 4x4 stride 2 (the
-  encoder's downsamples C -> 2C). It replaces the Pallas
+  encoder's downsamples C -> 2C), as an implicit GEMM on the tensor cores
+  in 3xTF32 (``csrc/mma_tf32.cuh``). It replaces the Pallas
   ``_conv3_io_kernel``, ``_conv3_kernel``, ``_conv3_res_kernel``,
   ``_conv3_stats_kernel``, ``_down4_kernel`` and ``_down4_stats_kernel``;
 - ``attn_stats``: MSAB pass A, per frame q = x Wq, k = x Wk, the
@@ -31,7 +32,8 @@ On a CUDA tensor each wrapper launches its CUDA C++ kernel from
 ``csrc/fused_msab.cu`` or raises; on a CPU tensor it takes its plain
 version. Nothing falls back. The TPU pixel packing, neighbour-pack
 matrices, GELU polynomial and bf16 products are not carried over: the
-kernels compute in float32 with ``erff``.
+kernels compute in float32 with ``erff`` (the convolution's products in
+3xTF32: each operand split into two TF32 parts, the sum in float32).
 
 Weights are in the layouts the kernels read, made once per model by
 ``models/mst_plus_plus.py``: a convolution as (K, K, Cin, Cout), a 1x1
@@ -60,6 +62,9 @@ STATS_BLOCKS = 256
 HEAD_DIM = 31
 #: Channel counts the MSAB kernels are built for (the three MST++ levels).
 MSAB_CHANNELS = (31, 62, 124)
+#: (K, Cin, Cout) the convolution kernel is built for: conv_in, the 3x3
+#: C -> C maps, the two 4x4 stride-2 downsamples.
+CONV_SHAPES = ((3, 3, 31), (3, 31, 31), (4, 31, 62), (4, 62, 124))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,7 +101,9 @@ def _lib() -> ctypes.CDLL:
         lib.av_msab_stats.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.av_msab_apply.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.av_msab_up_fuse.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-        for fn in (lib.av_msab_conv, lib.av_msab_stats, lib.av_msab_apply, lib.av_msab_up_fuse):
+        lib.av_msab_conv_smem.argtypes = [_I, _I, _I]
+        for fn in (lib.av_msab_conv, lib.av_msab_stats, lib.av_msab_apply, lib.av_msab_up_fuse,
+                   lib.av_msab_conv_smem):
             fn.restype = ctypes.c_int
     return lib
 
@@ -242,20 +249,36 @@ def _check_conv(x, w, residual) -> None:
 def conv(x: torch.Tensor, w: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
     """K x K convolution of (N, H, W, Cin) float32 frames by a
     (K, K, Cin, Cout) weight, zero pad 1, stride 1 (K = 3) or 2 (K = 4),
-    no bias, plus ``residual`` (the output's shape) when given."""
+    no bias, plus ``residual`` (the output's shape) when given. On the card
+    (K, Cin, Cout) must be one of ``CONV_SHAPES``; the kernel is an implicit
+    GEMM on the tensor cores in 3xTF32."""
     if x.device.type == "cpu":
         return conv_plain(x, w, residual)
     _check_conv(x, w, residual)
     n, h, wd, cin = x.shape
     k, cout = int(w.shape[0]), int(w.shape[3])
+    if (k, cin, cout) not in CONV_SHAPES:
+        raise ValueError(f"conv: the kernel is built for (K, Cin, Cout) in {CONV_SHAPES}, got {(k, cin, cout)}")
+    if w.data_ptr() % 16:
+        raise ValueError("conv: the weight must start on 16 bytes (the kernel copies its rows in 16-byte pieces)")
     ho, wo = conv_out_hw(h, wd, k)
     frames = x.contiguous()
+    if frames.data_ptr() % 16:  # the kernel copies input rows in 8-byte pieces
+        frames = frames.clone()
     out = torch.empty((n, ho, wo, cout), dtype=torch.float32, device=x.device)
     res = None if residual is None else _ptr(residual)
     _build.launch(_lib(), "av_msab_conv", x.device, frames.data_ptr(), _ptr(w), res, out.data_ptr(),
                   n, h, wd, cin, cout, k)
     LAUNCHES["conv_kernel"] += 1
     return out
+
+
+def conv_smem_bytes(k: int, cin: int, cout: int) -> int:
+    """Dynamic shared memory of one block of the convolution kernel for
+    (K, Cin, Cout) in ``CONV_SHAPES``, in bytes (builds the library)."""
+    if (k, cin, cout) not in CONV_SHAPES:
+        raise ValueError(f"conv: the kernel is built for (K, Cin, Cout) in {CONV_SHAPES}, got {(k, cin, cout)}")
+    return _lib().av_msab_conv_smem(k, cin, cout)
 
 
 def _check_stats(x, wq, wk, heads) -> None:

@@ -11,8 +11,10 @@ On a CUDA tensor ``ffn`` launches the CUDA C++ kernel ``ffn_kernel`` of
 ``csrc/fused_mst.cu``, which replaces the Pallas ``_ffn_kernel``, or
 raises; on a CPU tensor it takes its plain version, ``ffn_plain``. Nothing
 falls back. The kernel stages an output tile with a 1-pixel halo in shared
-memory; ``tile_for`` picks the largest of 8x16, 8x8 and 4x8 that fits the
-card and raises, naming C and the tile, when none does.
+memory and runs both 1x1 products on the tensor cores in 3xTF32, the 4C
+hidden in chunks of 32 (C = 31) or 16 (C = 62, 124) channels; ``tile_for``
+picks the largest tile of which two blocks fit one SM's shared memory and
+raises, naming C and the tile, when none does.
 
 Weights are in the layouts the kernel reads: w0 (C, 4C), dw (3, 3, 4C),
 w4 (4C, C), ln_w and ln_b (C,).
@@ -35,8 +37,8 @@ LAUNCHES = {"ffn": 0}
 
 #: Channel counts the kernel is built for (the three MST-L levels).
 FFN_CHANNELS = (31, 62, 124)
-#: Output tiles (rows, columns), largest first.
-TILES = ((8, 16), (8, 8), (4, 8))
+#: Output tiles (rows, columns) the kernel is built for at each C, largest first.
+TILES = {31: ((8, 16), (8, 8), (4, 8)), 62: ((8, 16), (8, 8), (4, 8)), 124: ((8, 8), (4, 8))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,40 +53,51 @@ def _lib() -> ctypes.CDLL:
     if lib.av_mst_ffn.argtypes is None:
         lib.av_mst_ffn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.av_mst_ffn.restype = ctypes.c_int
-        lib.av_mst_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.av_mst_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
         lib.av_mst_smem_limit.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def smem_limit(device_index: int) -> int:
-    """The most dynamic shared memory, in bytes, one block may use on the
-    CUDA device ``device_index``."""
+    """The shared memory, in bytes, that two blocks may share on one SM of
+    the CUDA device ``device_index``: the SM's total less the per-block
+    reservation of each."""
     lib = _lib()
-    out = ctypes.c_int(0)
+    sm_bytes, reserved = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _build.check(lib, lib.av_mst_smem_limit(ctypes.byref(out)), "av_mst_smem_limit")
-    return out.value
+        _build.check(lib, lib.av_mst_smem_limit(ctypes.byref(sm_bytes), ctypes.byref(reserved)), "av_mst_smem_limit")
+    return sm_bytes.value - 2 * reserved.value
+
+
+def hidden_chunk(c: int) -> int:
+    """Hidden channels per chunk of the kernel at C = ``c``."""
+    return 32 if c <= 31 else 16
 
 
 def smem_bytes(c: int, tile: tuple[int, int]) -> int:
-    """Shared memory of one block: LN(x) and a C-wide hidden chunk over the
-    tile with its 1-pixel halo, and the chunk after the depthwise conv over
-    the tile. Must equal ``ffn_smem_floats`` in ``csrc/fused_mst.cu``."""
+    """Shared memory of one block: LN(x) and a hidden chunk over the tile
+    with its 1-pixel halo, the chunk after the depthwise conv over the tile,
+    and two stages of the chunk's W0 and W4 slabs, at the kernel's padded
+    pitches. Must equal ``Ffn::SMEM_FLOATS`` in ``csrc/fused_mst.cu``."""
     th, tw = tile
-    return 4 * c * (2 * (th + 2) * (tw + 2) + th * tw)
+    cp, hc = -(-c // 8) * 8, hidden_chunk(c)
+    n1, n0 = (th + 2) * (tw + 2), th * tw
+    stage = cp * (hc + 8) + hc * (cp + 8)
+    return 4 * (n1 * (cp + 4) + n1 * (hc + 8) + n0 * (hc + 4) + 2 * stage)
 
 
 def tile_for(c: int, limit: int) -> tuple[int, int]:
-    """The largest output tile whose block fits in ``limit`` bytes of shared
-    memory; raises when not even the smallest does."""
-    for tile in TILES:
-        if smem_bytes(c, tile) <= limit:
+    """The largest output tile of which two blocks fit in ``limit`` bytes of
+    one SM's shared memory (``smem_limit``); raises when not even the
+    smallest does."""
+    for tile in TILES[c]:
+        if 2 * smem_bytes(c, tile) <= limit:
             return tile
-    th, tw = TILES[-1]
+    th, tw = TILES[c][-1]
     raise ValueError(
-        f"ffn: C = {c} needs {smem_bytes(c, TILES[-1])} bytes of shared memory even with a {th}x{tw} tile; "
-        f"the card allows {limit}"
+        f"ffn: C = {c} needs {2 * smem_bytes(c, (th, tw))} bytes of shared memory for two blocks even with a "
+        f"{th}x{tw} tile; an SM has {limit}"
     )
 
 
@@ -112,10 +125,14 @@ def ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w0: torch.Tenso
     if x.device.type == "cpu":
         return ffn_plain(x, ln_w, ln_b, w0, dw, w4)
     _check(x, ln_w, ln_b, w0, dw, w4)
+    if w0.data_ptr() % 16 or w4.data_ptr() % 16:
+        raise ValueError("ffn: w0 and w4 must start on 16 bytes (the kernel copies their rows in 16-byte pieces)")
     n, h, w, c = x.shape
     index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     th, tw = tile_for(c, smem_limit(index))
     frames = x.contiguous()
+    if frames.data_ptr() % 16:  # the kernel copies pixel rows in 8- or 16-byte pieces
+        frames = frames.clone()
     out = torch.empty_like(frames)
     _build.launch(_lib(), "av_mst_ffn", x.device, frames.data_ptr(), out.data_ptr(), _ptr(ln_w), _ptr(ln_b),
                   _ptr(w0), _ptr(dw), _ptr(w4), n, h, w, c, th, tw)

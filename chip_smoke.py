@@ -9,7 +9,11 @@ raises on failure:
 1. device: card name, count, power limit; TF32 off for matrix products and
    convolutions (the cat's warp and zoom are full float32);
 2. build: compiles every ``csrc/*.cu`` kernel library (one nvcc per source,
-   all at once) and prints ptxas' register and shared-memory report;
+   all at once) and prints ptxas' register and shared-memory report; for
+   the tensor-core kernels (``conv_kernel``, ``ffn_kernel``) it prints each
+   instance's registers, spills and dynamic shared memory and the count of
+   ``HMMA`` instructions in its SASS (``cuobjdump --dump-sass``), and fails
+   if one has none;
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card at 1080x1920 and 721x1283: the three non-UV kernels on two
    random frames plus a frame of 0/1 values (so both branches of the
@@ -22,7 +26,11 @@ raises on failure:
    with C = 31, weights of scale 0.2, <= 1e-4; then each kernel's time
    (CUDA events), its plain version's time, its bound, and a library
    reference for the UV blur (reflect pad + two depthwise convolutions)
-   and the MST++ convolution (``F.conv2d`` on channels-last tensors);
+   and the MST++ convolution (``F.conv2d`` on channels-last tensors, with
+   the ratio of the kernel's time to it); ``conv`` and ``ffn`` also get a
+   second bound, for their 3xTF32 tensor-core products (3 x product
+   operations / 495 TFLOP/s + the other operations / 67 TFLOP/s, against
+   bytes / 3.35 TB/s), which is the ``bound_ms`` of their summary entries;
 4. main path: ``get_animal(name).visualize(frame)`` and
    ``visualize_batch_device`` (4 frames already on the card) at 1080p, first
    for the 20 non-UV species, then for the ported UV species, with the
@@ -58,6 +66,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +83,8 @@ SMALL_HW = (64, 96)
 TOL_LSB = 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
+TC_KERNELS = ("conv_kernel", "ffn_kernel")  # products in 3xTF32 on the tensor cores
 KERNEL_REPS = 100
 PLAIN_REPS = 5
 MAIN_REPS = 100
@@ -264,7 +275,68 @@ def build_phase() -> dict:
         for line in text.splitlines():
             if "ptxas info" in line and ("Compiling entry" in line or "Used" in line) or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    return {"seconds": seconds}
+    tc = tensor_core_report(reports)
+    for inst, row in tc.items():
+        log(f"[build] {inst}: {row['registers']} registers, {row['spill_stores']}/{row['spill_loads']} bytes "
+            f"spilled (stores/loads), {row['smem_bytes']} bytes of dynamic shared memory, {row['hmma']} HMMA in "
+            f"its SASS")
+        if row["hmma"] == 0:
+            raise AssertionError(f"{inst}: no HMMA instruction in its SASS")
+    for kernel in TC_KERNELS:
+        if not any(inst.startswith(kernel) for inst in tc):
+            raise AssertionError(f"{kernel}: no instance found in the built libraries")
+    return {"seconds": seconds, "tensor_core_kernels": tc}
+
+
+def instance_name(mangled: str) -> str:
+    """``conv_kernel<4,2,62,124>`` from a mangled kernel name (the name
+    itself when it is not one of the tensor-core kernels)."""
+    m = re.search(r"\d+((?:conv|ffn)_kernel)I((?:Li-?\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(-?[0-9]+)E', m.group(2)))}>"
+
+
+def tensor_core_report(reports: dict) -> dict:
+    """Per instance of the tensor-core kernels: ptxas' registers and spills
+    (the build log), its dynamic shared memory (from the wrappers) and the
+    count of HMMA instructions in its SASS."""
+    from animal_vision_tpu_torch.ops import _build
+    from animal_vision_tpu_torch.ops import fused_msab as M
+    from animal_vision_tpu_torch.ops import fused_mst as T
+
+    out = {}
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    for name in ("fused_msab", "fused_mst"):
+        current = None
+        for line in reports[name].splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                inst = instance_name(m.group(1))
+                current = inst if inst.startswith(TC_KERNELS) else None
+                if current:
+                    out[current] = dict(registers=None, spill_stores=None, spill_loads=None, smem_bytes=None, hmma=0)
+            elif current and "spill stores" in line:
+                out[current].update({f"spill_{k}": int(v) for v, k in re.findall(r"(\d+) bytes spill (stores|loads)",
+                                                                                 line)})
+            elif current and "Used" in line:
+                out[current]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        current = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = instance_name(m.group(1))
+            elif current in out and "HMMA" in line:
+                out[current]["hmma"] += 1
+    for inst, row in out.items():
+        args = [int(v) for v in inst[inst.index("<") + 1:-1].split(",")]
+        if inst.startswith("ffn_kernel"):
+            row["smem_bytes"] = T.smem_bytes(args[0], (args[1], args[2]))
+        else:
+            row["smem_bytes"] = M.conv_smem_bytes(args[0], args[2], args[3])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -490,6 +562,7 @@ def mst_kernel_cases(hw: tuple[int, int], n: int, device: torch.device, gen) -> 
             library=library, library_out=lambda y: y.permute(0, 2, 3, 1),
             bytes=4 * (n * hh * ww * cin + out_px * cout * (2 if residual else 1) + wt.numel()),
             ops=out_px * cout * (2 * k * k * cin + (1 if residual else 0)),
+            tc_ops=(out_px * cout * 2 * k * k * cin, out_px * cout * (1 if residual else 0)),
         ))
 
     def stats(lvl):
@@ -550,6 +623,16 @@ def mst_kernel_cases(hw: tuple[int, int], n: int, device: torch.device, gen) -> 
     return cases
 
 
+def tc_bound(nbytes: int, prod_ops: int, other_ops: int) -> dict:
+    """The least time of a kernel whose products run in 3xTF32 on the tensor
+    cores: three TF32 passes over the product operations at 495 TFLOP/s
+    plus the other operations at 67 TFLOP/s, against its bytes at
+    3.35 TB/s."""
+    ops_s = 3 * prod_ops / TF32_OPS_PER_S + other_ops / F32_OPS_PER_S
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return dict(bound_tc_ms=max(ops_s, bytes_s) * 1e3, bound_tc_by="bytes" if bytes_s >= ops_s else "operations")
+
+
 def mst_error(kernel: str, got, want) -> tuple[float, float]:
     """(max abs error, the figure held to the kernel's tolerance): for the
     stats, the error of each output relative to its largest magnitude."""
@@ -595,11 +678,16 @@ def mst_kernels_phase(device: torch.device, points=MST_POINTS, reps=MST_KERNEL_R
                 bound_ms=bound_s * 1e3, bytes=case["bytes"], ops=case["ops"],
                 bound_by="bytes" if case["bytes"] / HBM_BYTES_PER_S >= case["ops"] / F32_OPS_PER_S else "operations",
             )
-            rows.append(row)
             lib = "" if library_ms is None else f", library {library_ms:.4f} ms (err {library_err:.2g})"
+            tc = ""
+            if "tc_ops" in case:
+                row.update(tc_bound(case["bytes"], *case["tc_ops"]), library_ratio=ms / library_ms)
+                tc = (f", 3xTF32 bound {row['bound_tc_ms']:.4f} ms by {row['bound_tc_by']}: "
+                      f"{row['bound_tc_ms'] / ms:.1%} of it; {ms / library_ms:.3f}x the library's time")
+            rows.append(row)
             log(f"[kernel] {kernel:<17} {case['case']:<22} {point:<7} x{n}: err {err:.3g} (abs {abs_err:.3g}), "
-                f"{ms:.4f} ms (plain {plain_ms:.3f} ms{lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
-                f"{row['bound_ms'] / ms:.1%} of bound)")
+                f"{ms:.4f} ms (plain {plain_ms:.3f} ms{lib}, f32 bound {row['bound_ms']:.4f} ms by "
+                f"{row['bound_by']}, {row['bound_ms'] / ms:.1%} of it{tc})")
             del case, got, want
     return rows
 
@@ -637,18 +725,21 @@ def ffn_phase(device: torch.device, cases=FFN_CASES, reps=MST_KERNEL_REPS, plain
         plain_ms = time_ms(lambda: T.ffn_plain(x, *ws), plain_reps, device, warmup=1)
         px = n * h * w
         nbytes = 4 * (2 * px * c + sum(t.numel() for t in ws))
-        ops = px * (16 * c * c + 72 * c + 8 * c + 8 * c + c)
+        prod_ops, other_ops = px * 16 * c * c, px * (72 * c + 8 * c + 8 * c + c)
+        ops = prod_ops + other_ops
         bound_s = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
         row = dict(
             kernel="ffn_kernel", case=f"C={c}", point=point, h=h, w=w, frames=n, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=None, bound_ms=bound_s * 1e3, bytes=nbytes, ops=ops,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
             tile=list(T.tile_for(c, T.smem_limit(torch.cuda.current_device()))) if device.type == "cuda" else None,
+            **tc_bound(nbytes, prod_ops, other_ops),
         )
         rows.append(row)
         log(f"[kernel] ffn_kernel        {row['case']:<22} {h}x{w} x{n}: err {err:.3g}, {ms:.4f} ms (plain "
-            f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
-            f"{row['bound_ms'] / ms:.1%} of bound, tile {row['tile']})")
+            f"{plain_ms:.3f} ms, f32 bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"{row['bound_ms'] / ms:.1%} of it, 3xTF32 bound {row['bound_tc_ms']:.4f} ms by {row['bound_tc_by']}, "
+            f"{row['bound_tc_ms'] / ms:.1%} of it; tile {row['tile']})")
         del x, ws
     return rows
 
@@ -1073,7 +1164,10 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
             launches: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
     plain time, bound and library time of its heaviest main-path case at
-    1080p. Launches come from the main-path run of the kernel's species."""
+    1080p. Launches come from the main-path run of the kernel's species.
+    The tensor-core kernels' ``bound_ms`` is their 3xTF32 bound (the f32
+    one beside it); the convolution also reports its worst ratio to
+    ``F.conv2d`` over its 10 cases."""
     representative = {"iso_u8": "dog", "streak_u8": "deer", "pointwise_u8": "rat gain"}
     out = []
     for kernel, case in representative.items():
@@ -1098,20 +1192,28 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
     for kernel, case in MST_REPRESENTATIVE.items():
         rows = [r for r in mst_rows if r["kernel"] == kernel]
         rep = next(r for r in rows if r["case"] == case and r["point"] == "1080p")
+        extra = {}
+        if kernel == "attn_stats_kernel":
+            extra = {"max_rel_err": max(r["err"] for r in rows)}
+        if kernel in TC_KERNELS:
+            worst = max(rows, key=lambda r: r["library_ratio"])
+            extra = {"bound_f32_simt_ms": rep["bound_ms"], "library_ratio_worst": worst["library_ratio"],
+                     "library_ratio_worst_case": f"{worst['case']} at {worst['point']}"}
         out.append(dict(
             name=kernel, route="cuda", source=SOURCES[kernel], replaces=REPLACES[kernel],
             launches=launches[kernel], max_abs_err=max(r["max_abs_err"] for r in rows),
             case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']}",
-            ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-            library_ms=rep["library_ms"],
-            **({"max_rel_err": max(r["err"] for r in rows)} if kernel == "attn_stats_kernel" else {}),
+            ms=rep["ms"], plain_ms=rep["plain_ms"], library_ms=rep["library_ms"],
+            bound_ms=rep["bound_tc_ms"] if kernel in TC_KERNELS else rep["bound_ms"],
+            bound_by=rep["bound_tc_by"] if kernel in TC_KERNELS else rep["bound_by"], **extra,
         ))
     rep = next(r for r in ffn_rows if r["case"] == "C=31" and r["point"] == "1080p")
     out.append(dict(
         name="ffn_kernel", route="cuda", source=SOURCES["ffn_kernel"], replaces=REPLACES["ffn_kernel"],
         launches=launches["ffn_kernel"], max_abs_err=max(r["max_abs_err"] for r in ffn_rows),
         case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']}",
-        ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=None,
+        ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_tc_ms"], bound_by=rep["bound_tc_by"],
+        library_ms=None, bound_f32_simt_ms=rep["bound_ms"],
     ))
     return {"kernels": out}
 

@@ -211,19 +211,52 @@ def _counted(kernel, fn, *args):
     return out
 
 
-@pytest.mark.parametrize("shape", MST_SHAPES)
-@pytest.mark.parametrize("cin,cout,k,residual", [(3, 31, 3, False), (31, 31, 3, False), (31, 31, 3, True),
-                                                   (31, 62, 4, False), (62, 124, 4, False)])
-def test_msab_conv_kernel(cuda, no_plain_on_cuda, shape, cin, cout, k, residual):
-    rng = np.random.default_rng(cin + cout + k)
-    x = _randn(rng, *shape, cin, scale=0.5)
+# Output shapes (frames, rows, columns): narrower and shorter than one
+# output tile (8x32 at K = 3, 8x16 and 4x16 at K = 4), widths that are not
+# a multiple of the tile, several frames.
+CONV_OUT_SHAPES = [(1, 1, 1), (1, 1, 7), (1, 5, 3), (3, 9, 37), (1, 8, 8), (2, 13, 21), (1, 9, 7), (1, 40, 67)]
+CONV_CASES = [(3, 31, 3, False), (31, 31, 3, False), (31, 31, 3, True), (31, 62, 4, False), (62, 124, 4, False)]
+
+
+def _conv_operands(shape, cin, cout, k, residual):
+    """Inputs of scale 0.5 whose output is ``shape`` (n, ho, wo), a weight of
+    scale 0.2 and the residual."""
+    n, ho, wo = shape
+    rng = np.random.default_rng(cin + cout + k + ho * wo)
+    hi, wi = (ho, wo) if k == 3 else (2 * ho, 2 * wo)
+    assert M.conv_out_hw(hi, wi, k) == (ho, wo)
+    x = _randn(rng, n, hi, wi, cin, scale=0.5)
     w = _randn(rng, k, k, cin, cout, scale=0.2)
-    ho, wo = M.conv_out_hw(shape[1], shape[2], k)
-    r = _randn(rng, shape[0], ho, wo, cout, scale=0.5) if residual else None
+    r = _randn(rng, n, ho, wo, cout, scale=0.5) if residual else None
+    return x, w, r
+
+
+@pytest.mark.parametrize("shape", CONV_OUT_SHAPES)
+@pytest.mark.parametrize("cin,cout,k,residual", CONV_CASES)
+def test_msab_conv_kernel(cuda, no_plain_on_cuda, shape, cin, cout, k, residual):
+    x, w, r = _conv_operands(shape, cin, cout, k, residual)
     got = _counted("conv_kernel", M.conv, x.to(cuda), w.to(cuda), None if r is None else r.to(cuda))
     want = no_plain_on_cuda["conv_plain"](x, w, r)
     assert got.shape == want.shape
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("cin,cout,k,residual", CONV_CASES)
+def test_msab_conv_kernel_frames_independent(cuda, no_plain_on_cuda, cin, cout, k, residual):
+    """Each frame of a batch equals the same frame alone, bit for bit, and
+    two runs are bit-equal: every output is one block's fixed-order sum."""
+    x, w, r = (None if t is None else t.to(cuda) for t in _conv_operands((3, 9, 37), cin, cout, k, residual))
+    got = M.conv(x, w, r)
+    assert torch.equal(got, M.conv(x, w, r))
+    for i in range(x.shape[0]):
+        alone = M.conv(x[i:i + 1].contiguous(), w, None if r is None else r[i:i + 1].contiguous())
+        assert torch.equal(got[i:i + 1], alone)
+
+
+def test_msab_conv_kernel_raises_on_other_shapes(cuda):
+    """The card's kernel is built for the four MST++ shapes; others raise."""
+    with pytest.raises(ValueError, match="built for"):
+        M.conv(torch.zeros(1, 8, 8, 31, device=cuda), torch.zeros(3, 3, 31, 62, device=cuda))
 
 
 @pytest.mark.parametrize("shape", MST_SHAPES)
@@ -302,13 +335,23 @@ def test_uv_species_with_mst_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, cls
 # --- MST-L's FFN kernel (ops/fused_mst.py) and the model ---
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 9, 13), (1, 8, 16), (1, 17, 33), (2, 40, 67)])
-@pytest.mark.parametrize("c", T.FFN_CHANNELS)
-def test_ffn_kernel(cuda, no_plain_on_cuda, shape, c):
+FFN_SHAPES = [(1, 1, 1), (1, 1, 7), (3, 5, 3), (2, 9, 13), (1, 8, 16), (1, 17, 33), (2, 40, 67), (4, 68, 120)]
+
+
+def _ffn_operands(shape, c):
     rng = np.random.default_rng(c + 3)
     x = _randn(rng, *shape, c, scale=0.5)
     ws = (1.0 + _randn(rng, c, scale=0.2), _randn(rng, c, scale=0.2), _randn(rng, c, 4 * c, scale=0.2),
           _randn(rng, 3, 3, 4 * c, scale=0.2), _randn(rng, 4 * c, c, scale=0.2))
+    return x, ws
+
+
+@pytest.mark.parametrize("shape", FFN_SHAPES)
+@pytest.mark.parametrize("c", T.FFN_CHANNELS)
+def test_ffn_kernel(cuda, no_plain_on_cuda, shape, c):
+    """From 1x1 frames and frames narrower than one tile to C = 124 at
+    4 x 68 x 120 (the 272x480 operating point's deepest level)."""
+    x, ws = _ffn_operands(shape, c)
     before = T.LAUNCHES["ffn"]
     got = T.ffn(x.to(cuda), *(t.to(cuda) for t in ws))
     torch.cuda.synchronize()
@@ -318,9 +361,22 @@ def test_ffn_kernel(cuda, no_plain_on_cuda, shape, c):
     assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("c", T.FFN_CHANNELS)
+def test_ffn_kernel_frames_independent(cuda, no_plain_on_cuda, c):
+    """Each frame of a batch equals the same frame alone, bit for bit, and
+    two runs are bit-equal."""
+    x, ws = _ffn_operands((3, 17, 33), c)
+    x, ws = x.to(cuda), tuple(t.to(cuda) for t in ws)
+    got = T.ffn(x, *ws)
+    assert torch.equal(got, T.ffn(x, *ws))
+    for i in range(x.shape[0]):
+        assert torch.equal(got[i:i + 1], T.ffn(x[i:i + 1].contiguous(), *ws))
+
+
 def test_ffn_tile_raises_above_shared_memory(cuda):
-    """This card takes the 8x16 tile up to C = 62 and 8x8 at C = 124; where
-    no tile fits, the wrapper raises and names C and the tile."""
+    """Two blocks of the 8x16 tile fit an SM of this card at C = 31 and 62,
+    of 8x8 at C = 124; where not even two 4x8 blocks fit, the wrapper
+    raises and names C and the tile."""
     limit = T.smem_limit(torch.cuda.current_device())
     assert [T.tile_for(c, limit) for c in T.FFN_CHANNELS] == [(8, 16), (8, 16), (8, 8)]
     with pytest.raises(ValueError, match="C = 124 .* 4x8 tile"):

@@ -89,12 +89,13 @@ def test_ffn_checks_its_operands():
         K.ffn(x, g, b, w0.t(), dw, w4)
 
 
-@pytest.mark.parametrize("c,limit,tile", [(31, 232_448, (8, 16)), (62, 232_448, (8, 16)), (124, 232_448, (8, 8)),
-                                          (124, 100 * 1024, (4, 8))])
+@pytest.mark.parametrize("c,limit,tile", [(31, 231_424, (8, 16)), (62, 231_424, (8, 16)), (124, 231_424, (8, 8)),
+                                          (124, 200 * 1024, (4, 8))])
 def test_tile_for(c, limit, tile):
-    """The largest tile whose shared memory fits; a raise naming C and the
-    smallest tile where none does."""
+    """The largest tile of which two blocks fit ``limit`` bytes (an H100
+    SM's 233,472 less two 1 KB block reservations in the first three); a
+    raise naming C and the smallest tile where none does."""
     assert K.tile_for(c, limit) == tile
-    assert K.smem_bytes(c, tile) <= limit
+    assert 2 * K.smem_bytes(c, tile) <= limit
     with pytest.raises(ValueError, match=f"C = {c} .* 4x8 tile"):
-        K.tile_for(c, K.smem_bytes(c, (4, 8)) - 4)
+        K.tile_for(c, 2 * K.smem_bytes(c, (4, 8)) - 4)

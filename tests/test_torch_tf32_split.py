@@ -1,0 +1,141 @@
+"""The arithmetic of the port's tensor-core kernels, emulated in numpy.
+
+``conv_kernel`` (``csrc/fused_msab.cu``) and ``ffn_kernel``
+(``csrc/fused_mst.cu``) run their float32 products as 3xTF32 on
+``mma.sync.m16n8k8`` (``csrc/mma_tf32.cuh``): each operand is split as
+hi = rna(x), lo = rna(x - hi), where rna rounds to TF32 (10 mantissa bits)
+to nearest with ties away from zero; each 8-deep step accumulates lo*hi',
+then hi*lo', then hi*hi' into a float32 partial sum, and each slice of the
+inner dimension (one tap's 32 channels for the convolution, one hidden
+chunk for the FFN's down product) is added into the float32 result apart.
+
+Here a tensor-core step is emulated as exact products summed with the
+partial sum and rounded once to float32. At the convolution's inner
+dimensions (27, 279, 496, 992) and the FFN's (C and 4C for C = 31, 62,
+124), with the card tests' data scales, 3xTF32 stays within their 1e-4 of
+a float64 product, and one TF32 pass does not at 992: the reason for the
+three passes."""
+
+import numpy as np
+import pytest
+
+from animal_vision_tpu_torch.ops import fused_mst
+
+TOL = 1e-4  # the card tests' bar for conv and ffn against their plain versions
+ROWS, COLS = 64, 32  # output pixels and channels per emulated product
+
+
+def tf32_rna(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 on finite float32: add half an ulp of the 10-bit
+    mantissa to the magnitude, clear the 13 low bits."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x.astype(np.float32) - hi)
+
+
+def mma(d: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """One tensor-core step: d + a b with exact products, rounded once."""
+    return (d.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+
+
+def kernel_product(a: np.ndarray, b: np.ndarray, slice_len: int, passes: int = 3) -> np.ndarray:
+    """(M, K) x (K, N) as the kernels compute it: slices of ``slice_len``
+    (each zero-padded to a multiple of 8), 8-deep steps, 3xTF32 (or one
+    TF32 pass, hi*hi' only), each slice's partial sum added in float32."""
+    m, k = a.shape
+    acc = np.zeros((m, b.shape[1]), np.float32)
+    for s0 in range(0, k, slice_len):
+        part = np.zeros_like(acc)
+        for k0 in range(s0, min(s0 + slice_len, k), 8):
+            k1 = min(k0 + 8, s0 + slice_len, k)
+            ahi, alo = split(a[:, k0:k1])
+            bhi, blo = split(b[k0:k1])
+            if passes == 3:
+                part = mma(part, alo, bhi)
+                part = mma(part, ahi, blo)
+            part = mma(part, ahi, bhi)
+        acc = acc + part
+    return acc
+
+
+def _error(a, b, slice_len, passes=3) -> float:
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    return float(np.abs(kernel_product(a, b, slice_len, passes) - want).max())
+
+
+def _conv_operands(k: int, cin: int):
+    """im2col rows of inputs of scale 0.5 and a (K*K*Cin, Cout) weight of
+    scale 0.2, as the card tests draw them."""
+    rng = np.random.default_rng(k * 100 + cin)
+    a = (rng.standard_normal((ROWS, k * k * cin)) * 0.5).astype(np.float32)
+    b = (rng.standard_normal((k * k * cin, COLS)) * 0.2).astype(np.float32)
+    return a, b
+
+
+# (K, Cin, slice): conv_in flattens its 27 (tap, channel) pairs into one
+# slice; the others take one tap's channels per slice
+CONV_CASES = [(3, 3, 27), (3, 31, 31), (4, 31, 31), (4, 62, 31)]
+
+
+def test_rna_rounds_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)  # TF32 spacing at 1
+    x = np.array([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - np.float32(2.0 ** -23), one + ulp * 1.5,
+                  np.float32(3.0e-3), np.float32(-7.25)], np.float32)
+    got = tf32_rna(x)
+    want = np.array([one + ulp, -(one + ulp), one, one + ulp * 2], np.float32)
+    assert np.array_equal(got[:4], want)
+    assert np.array_equal(got[5:], x[5:])  # already exact in TF32
+    assert np.all(tf32_rna(got) == got)
+    assert np.all(got.view(np.uint32) & np.uint32(0x1FFF) == 0)
+
+
+def test_split_keeps_about_21_bits():
+    x = np.random.default_rng(0).standard_normal(4096).astype(np.float32) * 10
+    hi, lo = split(x)
+    assert np.all(np.abs(lo) <= np.abs(x) * 2.0 ** -11)
+    resid = np.abs(x.astype(np.float64) - hi.astype(np.float64) - lo.astype(np.float64))
+    assert np.all(resid <= np.abs(x.astype(np.float64)) * 2.0 ** -21)
+
+
+@pytest.mark.parametrize("k,cin,slice_len", CONV_CASES)
+def test_conv_3xtf32_within_the_card_bar(k, cin, slice_len):
+    a, b = _conv_operands(k, cin)
+    assert a.shape[1] in (27, 279, 496, 992)
+    assert _error(a, b, slice_len) <= TOL
+
+
+def test_conv_one_tf32_pass_misses_the_bar_at_992():
+    a, b = _conv_operands(4, 62)
+    assert a.shape[1] == 992
+    one_pass = _error(a, b, 31, passes=1)
+    assert one_pass > TOL
+    assert _error(a, b, 31) < one_pass / 20
+
+
+def _ffn_operands(c: int):
+    """LN(x) rows (scale 1) by W0 (C, 4C) of scale 0.2, and hidden rows
+    (GELU outputs, scale 0.5 and non-negative-leaning) by W4 (4C, C), as
+    ``tests/test_torch_kernels_gpu.py:test_ffn_kernel`` draws the weights."""
+    rng = np.random.default_rng(c)
+    y = rng.standard_normal((ROWS, c)).astype(np.float32)
+    w0 = (rng.standard_normal((c, 4 * c)) * 0.2).astype(np.float32)
+    hid = np.abs(rng.standard_normal((ROWS, 4 * c)) * 0.5).astype(np.float32)
+    w4 = (rng.standard_normal((4 * c, c)) * 0.2).astype(np.float32)
+    return y, w0, hid, w4
+
+
+@pytest.mark.parametrize("c", fused_mst.FFN_CHANNELS)
+def test_ffn_up_product_3xtf32_within_the_card_bar(c):
+    y, w0, _, _ = _ffn_operands(c)
+    assert _error(y, w0, c) <= TOL  # one slice: K = C
+
+
+@pytest.mark.parametrize("c", fused_mst.FFN_CHANNELS)
+def test_ffn_down_product_3xtf32_within_the_card_bar(c):
+    _, _, hid, w4 = _ffn_operands(c)
+    assert _error(hid, w4, fused_mst.hidden_chunk(c)) <= TOL  # K = 4C in hidden chunks
