@@ -43,10 +43,10 @@
 // 3. The accumulators go to a (pixel, CP) tile in shared memory; each tile
 //    row (one contiguous NHWC run) is stored, with x added, by consecutive
 //    threads at consecutive addresses.
-// The 4C hidden never reaches device memory. Tiles: 8x16, 8x8 or 4x8
-// (8x8 or 4x8 at C = 124); the wrapper takes the largest of which two
-// blocks fit an SM (8x16 at C = 31 and 62, 94 and 98 KB; 8x8 at C = 124,
-// 110 KB) and raises when none does.
+// The 4C hidden never reaches device memory. One tile per C (FfnTile):
+// 8x16 at C = 31 and 62 (94 and 98 KB), 8x8 at C = 124 (110 KB), the
+// largest of which two blocks fit an H100 SM; the wrapper raises where two
+// do not fit.
 //
 // C interface (loaded with ctypes): the entry point takes raw device
 // pointers and the stream, launches on that stream without synchronising,
@@ -92,7 +92,7 @@ struct Ffn {
   static_assert(N0 * PO <= Y, "the output tile reuses the LayerNorm tile");
 };
 
-// Two blocks per SM: the wrapper picks a tile whose shared memory allows it.
+// Two blocks per SM: the wrapper checks that the tile's shared memory allows it.
 template <int C, int TH, int TW>
 __global__ void __launch_bounds__(kThreads, 2)
 ffn_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ lnw,
@@ -297,9 +297,17 @@ ffn_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __
   }
 }
 
-template <int C, int TH, int TW>
+// The output tile built for each C (TILES in ops/fused_mst.py).
+template <int C>
+struct FfnTile {
+  static constexpr int TH = 8, TW = C < 124 ? 16 : 8;
+};
+
+template <int C>
 int launch_ffn(const float* x, float* out, const float* lnw, const float* lnb, const float* w0, const float* dwk,
-               const float* w4, int n, int h, int w, cudaStream_t stream) {
+               const float* w4, int n, int h, int w, int th, int tw, cudaStream_t stream) {
+  constexpr int TH = FfnTile<C>::TH, TW = FfnTile<C>::TW;
+  if (th != TH || tw != TW) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * Ffn<C, TH, TW>::SMEM_FLOATS;
   cudaError_t err = cudaFuncSetAttribute(ffn_kernel<C, TH, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -309,24 +317,13 @@ int launch_ffn(const float* x, float* out, const float* lnw, const float* lnb, c
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C>
-int launch_ffn_tile(const float* x, float* out, const float* lnw, const float* lnb, const float* w0,
-                    const float* dwk, const float* w4, int n, int h, int w, int th, int tw, cudaStream_t stream) {
-  if constexpr (C < 124) {
-    if (th == 8 && tw == 16) return launch_ffn<C, 8, 16>(x, out, lnw, lnb, w0, dwk, w4, n, h, w, stream);
-  }
-  if (th == 8 && tw == 8) return launch_ffn<C, 8, 8>(x, out, lnw, lnb, w0, dwk, w4, n, h, w, stream);
-  if (th == 4 && tw == 8) return launch_ffn<C, 4, 8>(x, out, lnw, lnb, w0, dwk, w4, n, h, w, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
 extern "C" {
 
 // ffn: x/out (n, h, w, c), lnw/lnb (c), w0 (c, 4c) 16-byte aligned,
-// dwk (3, 3, 4c), w4 (4c, c); the output tile th x tw is one of 8x16
-// (c = 31, 62), 8x8, 4x8.
+// dwk (3, 3, 4c), w4 (4c, c); th x tw must be the tile built for c
+// (FfnTile).
 int av_mst_ffn(const void* x, void* out, const void* lnw, const void* lnb, const void* w0, const void* dwk,
                const void* w4, int n, int h, int w, int c, int th, int tw, void* stream) {
   if (n < 1 || n > 65535 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -338,9 +335,9 @@ int av_mst_ffn(const void* x, void* out, const void* lnw, const void* lnb, const
   const auto* uf = static_cast<const float*>(w0);
   const auto* df = static_cast<const float*>(dwk);
   const auto* vf = static_cast<const float*>(w4);
-  if (c == 31) return launch_ffn_tile<31>(xf, of, gf, bf, uf, df, vf, n, h, w, th, tw, s);
-  if (c == 62) return launch_ffn_tile<62>(xf, of, gf, bf, uf, df, vf, n, h, w, th, tw, s);
-  if (c == 124) return launch_ffn_tile<124>(xf, of, gf, bf, uf, df, vf, n, h, w, th, tw, s);
+  if (c == 31) return launch_ffn<31>(xf, of, gf, bf, uf, df, vf, n, h, w, th, tw, s);
+  if (c == 62) return launch_ffn<62>(xf, of, gf, bf, uf, df, vf, n, h, w, th, tw, s);
+  if (c == 124) return launch_ffn<124>(xf, of, gf, bf, uf, df, vf, n, h, w, th, tw, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -12,9 +12,9 @@ On a CUDA tensor ``ffn`` launches the CUDA C++ kernel ``ffn_kernel`` of
 raises; on a CPU tensor it takes its plain version, ``ffn_plain``. Nothing
 falls back. The kernel stages an output tile with a 1-pixel halo in shared
 memory and runs both 1x1 products on the tensor cores in 3xTF32, the 4C
-hidden in chunks of 32 (C = 31) or 16 (C = 62, 124) channels; ``tile_for``
-picks the largest tile of which two blocks fit one SM's shared memory and
-raises, naming C and the tile, when none does.
+hidden in chunks of 32 (C = 31) or 16 (C = 62, 124) channels, one output
+tile per C; ``tile_for`` raises, naming C and the tile, where two blocks of
+it do not fit one SM's shared memory.
 
 Weights are in the layouts the kernel reads: w0 (C, 4C), dw (3, 3, 4C),
 w4 (4C, C), ln_w and ln_b (C,).
@@ -37,8 +37,10 @@ LAUNCHES = {"ffn": 0}
 
 #: Channel counts the kernel is built for (the three MST-L levels).
 FFN_CHANNELS = (31, 62, 124)
-#: Output tiles (rows, columns) the kernel is built for at each C, largest first.
-TILES = {31: ((8, 16), (8, 8), (4, 8)), 62: ((8, 16), (8, 8), (4, 8)), 124: ((8, 8), (4, 8))}
+#: The output tile (rows, columns) the kernel is built for at each C
+#: (``FfnTile`` in ``csrc/fused_mst.cu``): the largest of which two blocks
+#: fit an H100 SM.
+TILES = {31: (8, 16), 62: (8, 16), 124: (8, 8)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -88,17 +90,15 @@ def smem_bytes(c: int, tile: tuple[int, int]) -> int:
 
 
 def tile_for(c: int, limit: int) -> tuple[int, int]:
-    """The largest output tile of which two blocks fit in ``limit`` bytes of
-    one SM's shared memory (``smem_limit``); raises when not even the
-    smallest does."""
-    for tile in TILES[c]:
-        if 2 * smem_bytes(c, tile) <= limit:
-            return tile
-    th, tw = TILES[c][-1]
-    raise ValueError(
-        f"ffn: C = {c} needs {2 * smem_bytes(c, (th, tw))} bytes of shared memory for two blocks even with a "
-        f"{th}x{tw} tile; an SM has {limit}"
-    )
+    """The kernel's output tile at C = ``c``; raises when two blocks of it
+    do not fit in ``limit`` bytes of one SM's shared memory
+    (``smem_limit``)."""
+    th, tw = TILES[c]
+    need = 2 * smem_bytes(c, (th, tw))
+    if need > limit:
+        raise ValueError(f"ffn: C = {c} needs {need} bytes of shared memory for two blocks of its {th}x{tw} tile; "
+                         f"an SM has {limit}")
+    return th, tw
 
 
 def _check(x, ln_w, ln_b, w0, dw, w4) -> None:

@@ -218,12 +218,13 @@ CONV_OUT_SHAPES = [(1, 1, 1), (1, 1, 7), (1, 5, 3), (3, 9, 37), (1, 8, 8), (2, 1
 CONV_CASES = [(3, 31, 3, False), (31, 31, 3, False), (31, 31, 3, True), (31, 62, 4, False), (62, 124, 4, False)]
 
 
-def _conv_operands(shape, cin, cout, k, residual):
+def _conv_operands(shape, cin, cout, k, residual, odd=(0, 0)):
     """Inputs of scale 0.5 whose output is ``shape`` (n, ho, wo), a weight of
-    scale 0.2 and the residual."""
+    scale 0.2 and the residual. At K = 4 the input has 2 ho + odd[0] rows
+    and 2 wo + odd[1] columns."""
     n, ho, wo = shape
     rng = np.random.default_rng(cin + cout + k + ho * wo)
-    hi, wi = (ho, wo) if k == 3 else (2 * ho, 2 * wo)
+    hi, wi = (ho, wo) if k == 3 else (2 * ho + odd[0], 2 * wo + odd[1])
     assert M.conv_out_hw(hi, wi, k) == (ho, wo)
     x = _randn(rng, n, hi, wi, cin, scale=0.5)
     w = _randn(rng, k, k, cin, cout, scale=0.2)
@@ -238,6 +239,20 @@ def test_msab_conv_kernel(cuda, no_plain_on_cuda, shape, cin, cout, k, residual)
     got = _counted("conv_kernel", M.conv, x.to(cuda), w.to(cuda), None if r is None else r.to(cuda))
     want = no_plain_on_cuda["conv_plain"](x, w, r)
     assert got.shape == want.shape
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("odd", [(1, 1), (1, 0), (0, 1)])
+@pytest.mark.parametrize("shape", CONV_OUT_SHAPES)
+@pytest.mark.parametrize("cin,cout", [(31, 62), (62, 124)])
+def test_msab_conv_kernel_odd_input(cuda, no_plain_on_cuda, shape, cin, cout, odd):
+    """4x4 stride 2 on an odd number of input rows or columns: the last
+    outputs then read a last input row or column of data, not the zero
+    pad."""
+    x, w, _ = _conv_operands(shape, cin, cout, 4, False, odd)
+    got = _counted("conv_kernel", M.conv, x.to(cuda), w.to(cuda), None)
+    want = no_plain_on_cuda["conv_plain"](x, w, None)
+    assert got.shape == want.shape == (*shape, cout)
     assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 
@@ -375,11 +390,11 @@ def test_ffn_kernel_frames_independent(cuda, no_plain_on_cuda, c):
 
 def test_ffn_tile_raises_above_shared_memory(cuda):
     """Two blocks of the 8x16 tile fit an SM of this card at C = 31 and 62,
-    of 8x8 at C = 124; where not even two 4x8 blocks fit, the wrapper
-    raises and names C and the tile."""
+    of 8x8 at C = 124; where two do not fit, the wrapper raises and names C
+    and the tile."""
     limit = T.smem_limit(torch.cuda.current_device())
     assert [T.tile_for(c, limit) for c in T.FFN_CHANNELS] == [(8, 16), (8, 16), (8, 8)]
-    with pytest.raises(ValueError, match="C = 124 .* 4x8 tile"):
+    with pytest.raises(ValueError, match="C = 124 .* 8x8 tile"):
         T.tile_for(124, 48 * 1024)
 
 

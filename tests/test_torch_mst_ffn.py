@@ -89,13 +89,20 @@ def test_ffn_checks_its_operands():
         K.ffn(x, g, b, w0.t(), dw, w4)
 
 
-@pytest.mark.parametrize("c,limit,tile", [(31, 231_424, (8, 16)), (62, 231_424, (8, 16)), (124, 231_424, (8, 8)),
-                                          (124, 200 * 1024, (4, 8))])
-def test_tile_for(c, limit, tile):
-    """The largest tile of which two blocks fit ``limit`` bytes (an H100
-    SM's 233,472 less two 1 KB block reservations in the first three); a
-    raise naming C and the smallest tile where none does."""
-    assert K.tile_for(c, limit) == tile
-    assert 2 * K.smem_bytes(c, tile) <= limit
-    with pytest.raises(ValueError, match=f"C = {c} .* 4x8 tile"):
-        K.tile_for(c, 2 * K.smem_bytes(c, (4, 8)) - 4)
+H100_SMEM_FOR_TWO = 231_424  # an H100 SM's 233,472 bytes less two 1 KB block reservations
+
+
+@pytest.mark.parametrize("c,tile,nbytes", [(31, (8, 16), 93_632), (62, (8, 16), 97_984), (124, (8, 8), 109_504)])
+def test_tile_for(c, tile, nbytes):
+    """The tile built for each C, its shared memory (``Ffn::SMEM_FLOATS``
+    of ``csrc/fused_mst.cu``), two blocks of which fit an H100 SM."""
+    assert K.tile_for(c, H100_SMEM_FOR_TWO) == tile
+    assert K.smem_bytes(c, tile) == nbytes
+    assert 2 * nbytes <= H100_SMEM_FOR_TWO
+
+
+@pytest.mark.parametrize("c", K.FFN_CHANNELS)
+def test_tile_for_raises_where_two_blocks_do_not_fit(c):
+    th, tw = K.TILES[c]
+    with pytest.raises(ValueError, match=f"C = {c} .* {th}x{tw} tile"):
+        K.tile_for(c, 2 * K.smem_bytes(c, (th, tw)) - 4)
