@@ -4,21 +4,26 @@
 // - conv_kernel<K, S, Cin, Cout>: _conv3_io_kernel (conv_in, 3 -> 31), _conv3_kernel,
 //   _conv3_res_kernel and _conv3_stats_kernel (3x3 C -> C, optional
 //   residual), _down4_kernel and _down4_stats_kernel (4x4 stride 2, C -> 2C);
-// - attn_stats_kernel + stats_reduce_kernel: _stats_kernel (MSAB pass A) and
-//   the stats the TPU producers accumulate in _accum_stats;
-// - msab_apply_kernel<C>: _apply_kernel (MSAB pass B);
+// - attn_stats_kernel<C> + stats_reduce_kernel: _stats_kernel (MSAB pass A)
+//   and the stats the TPU producers accumulate in _accum_stats;
+// - msab_pos_kernel<C>: the first half of _apply_kernel (MSAB pass B),
+//   res1 = x M + b + dw3(gelu(dw3(x Wv))) + x; the second half, the FFN of
+//   res1, is ffn_kernel of fused_mst.cu (ops/fused_msab.py:msab_apply calls
+//   both);
 // - up_fuse_kernel<C>: _up_fuse_kernel and _up_fuse_stats_kernel.
 //
 // All frames are NHWC float32, (N, H, W, C), one grid z (or y) index per
 // frame. The TPU pixel packing (H, W/P, P*C), its kron and neighbour-pack
 // matrices, the GELU polynomial, bf16 products, lagged-ref halos and the
-// sharding bounds are not carried over: every product is float32 and GELU
-// is the exact 0.5 x (1 + erf(x / sqrt 2)) with erff.
+// sharding bounds are not carried over: every product is float32 (3xTF32
+// on the tensor cores, or SIMT float32 in up_fuse_kernel) and GELU is the
+// exact 0.5 x (1 + erf(x / sqrt 2)) with erff.
 //
-// Bound on this card: operations. The matrix products dominate (an MSAB
-// block at C channels does about 12 C^2 multiply-adds per pixel against
-// 8 C bytes of traffic: 90 flops per byte at C = 31, above the card's 20 for
-// float32 outside the tensor cores).
+// Bound on this card, for float32 outside the tensor cores: operations.
+// The matrix products dominate (an MSAB block at C channels does about
+// 12 C^2 multiply-adds per pixel against 8 C bytes of traffic: 90 flops per
+// byte at C = 31, above the card's 20). So conv, attn_stats and msab_pos run
+// their products on the tensor cores in 3xTF32 (mma_tf32.cuh).
 //
 // conv_kernel<K, S, Cin, Cout> is an implicit GEMM on the tensor cores.
 // Bound: the 3x3 and 4x4 convolutions do 2 K^2 Cin multiply-adds per
@@ -51,34 +56,56 @@
 //   62 -> 124; two blocks fit an SM in each (95 / 107 / 101 KB), so the
 //   68x120 level of the 4 x 272 x 480 point keeps two blocks per SM.
 //
-// The other three kernels run their products as "warp GEMMs" (warp_gemm
-// below): an input tile sits in shared memory planar, [channel][pixel], the
-// 32 lanes of a warp take 32 pixels each step and the warp takes groups of
-// 4 consecutive outputs, so a lane reads conflict-free shared memory and
+// attn_stats_kernel<C> (pass A) on the tensor cores. Bound: per pixel
+// 4 C^2 multiply-adds for q and k, 2 * 31 C for the head-diagonal Gram
+// blocks and 2 C for the norms, against 4 C bytes read: in 3xTF32 about
+// 0.06-0.08 ms per 1080p level, set by the bytes at C = 31 and 62 and by
+// the products at C = 124 (0.18 ms in float32 outside the tensor cores).
+// Design:
+// - one block per (run of pixel tiles, head, frame); the head's 31 columns
+//   of Wq and of Wk stay in shared memory, x comes in tiles of P = 64
+//   pixels (32 at C = 124) by cp.async, pixel-major, two tiles in flight;
+// - [q | k] = x [Wq | Wk] for the head as 3xTF32 mma.sync into a (P, 64)
+//   tile; then G += k^T q with the pixels as the inner dimension, each warp
+//   one 16 x 8 block of the padded 32 x 32 G in fragments across all its
+//   tiles, each 32-pixel slice summed apart; sum q^2 and sum k^2 in float32
+//   from the staged tile, each thread over a quarter of the pixels;
+// - the number of blocks per frame and head is a function of the pixel
+//   count only (ops/fused_msab.py:stats_blocks, up to 1024: a 1080p frame
+//   fills the card), each block writes its partial sums to a buffer, and
+//   stats_reduce_kernel adds them in a fixed order: no atomics, so repeated
+//   runs are bit-equal and a frame gives the same bits alone and in a batch.
+//
+// msab_pos_kernel<C> (the first half of pass B) on the tensor cores. Bound:
+// per pixel 2 C^2 multiply-adds (x Wv, x M) and 2 depthwise 3x3s, against
+// 8 C bytes: in 3xTF32 the bytes set it at C = 31 and 62 (0.153 / 0.077 ms
+// at 1080p), the products at C = 124 (0.048 ms). The FFN that follows is
+// ffn_kernel: splitting there costs one round trip of res1 (2% of the old
+// single kernel's time at C = 31) and takes the halo from 3 pixels to 2.
+// Design, one block of 8 warps per TH x TW output tile (PosTile):
+// - x over R2 (the tile and a 2-pixel halo) by cp.async with zero fill,
+//   pixel-major at a pitch of CP + 4 (CP: C padded to 8);
+// - the output channels in chunks of 32: the chunk's columns of Wv and M_n
+//   (M of frame n) arrive by cp.async (the next chunk's during this one's
+//   depthwise work); V = x Wv[:, chunk] over R2 and A = x M[:, chunk] over
+//   R0 in 3xTF32 mma.sync, each 32-deep slice summed apart;
+// - T = gelu(dw3(V, pos0)) over R1 (zero outside the image: the outer
+//   depthwise's zero pad) and dw3(T, pos2) over R0 on the float32 units, a
+//   thread per (channel, run of pixels along a row), as ffn_kernel's
+//   depthwise; V outside the image is 0 because x is;
+// - ((A + bproj) + dw3(T)) + x into a (pixel, 32) tile, stored by
+//   consecutive threads at consecutive addresses of each pixel's run.
+//
+// up_fuse_kernel runs its products as "warp GEMMs" (warp_gemm below): an
+// input tile sits in shared memory planar, [channel][pixel], the 32 lanes
+// of a warp take 32 pixels each step and the warp takes groups of 4
+// consecutive outputs, so a lane reads conflict-free shared memory and
 // every lane of a warp reads the same weight (one broadcast load, from L1).
-// Their weights stay in device memory (L1/L2-resident).
-// - attn_stats_kernel: a fixed number of blocks per frame (a function of
-//   the pixel count only) walk 32-pixel tiles: q and k of the tile into
-//   shared memory, then each thread accumulates its entries of the
-//   head-diagonal 31x31 blocks of k^T q and the squared norms in registers.
-//   The partial sums go to a buffer and stats_reduce_kernel adds them in
-//   block order: no atomics, so repeated runs are bit-equal.
-// - msab_apply_kernel: one block per TH x TW output tile keeps the whole
-//   MSAB in shared memory, with the halos that the three depthwise 3x3s
-//   need: x and v = x Wv over a 3-pixel halo, t = gelu(dw3(v)) over 2
-//   (zero outside the image: the outer conv's zero pad), res1 = x M + b +
-//   dw3(t) + x and y = LN(res1) over 1, then the FFN one chunk of C hidden
-//   channels at a time: h = gelu(y W0[:, chunk]) over 1 (zero outside the
-//   image: the FFN's depthwise zero pad), gelu(dw3(h)) over the tile, and
-//   the chunk's W4 rows added into the output tile. The 4C hidden never
-//   reaches device memory. Tiles are 8x8 for C = 31, 62 and 4x8 for
-//   C = 124, so that the (2 (TH+6)(TW+6) + (TH+4)(TW+4)) C floats of
-//   shared memory fit a block (186 KB at C = 124); at C = 62 and 124 only
-//   one block fits an SM, and it takes 16 warps instead of 8.
-// - up_fuse_kernel: a 4x8 input tile's 2x2 transposed convolution (with
-//   its bias per (dy, dx, out)) is written depth-to-space into the first
-//   half of an [up | skip] tile in shared memory, the skip tile into the
-//   second half, and one more warp GEMM applies the 1x1 fuse.
+// Its weights stay in device memory (L1/L2-resident). A 4x8 input tile's
+// 2x2 transposed convolution (with its bias per (dy, dx, out)) is written
+// depth-to-space into the first half of an [up | skip] tile in shared
+// memory, the skip tile into the second half, and one more warp GEMM
+// applies the 1x1 fuse.
 //
 // C interface (loaded with ctypes): each entry point takes raw device
 // pointers and the stream, launches on that stream without synchronising,
@@ -96,7 +123,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 4;     // consecutive outputs a warp takes per step
 constexpr int kHeadDim = 31;  // MST++ attention heads are 31 channels
-constexpr int kStatsTile = 32;
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -359,261 +385,430 @@ int launch_conv(const float* x, const float* wt, const float* res, float* out, i
 template <int C>
 __host__ __device__ constexpr int stats_size() { return C * kHeadDim + 2 * C; }
 
+// One block per (run of pixel tiles, head, frame). Its head's 31 q and 31 k
+// columns of [Wq | Wk] stay in shared memory; x comes in P-pixel tiles, two
+// in flight. The [q | k] tile is (P, 64): q in columns 0..30, k in 32..62.
 template <int C>
-__host__ __device__ constexpr size_t stats_smem_floats() { return static_cast<size_t>(C) * kStatsTile + 2 * C * (kStatsTile + 1); }
+struct Stats {
+  static constexpr int CP = cdiv(C, 8) * 8;
+  static constexpr int P = C > 62 ? 32 : 64;  // pixels per tile
+  static constexpr int PX = CP + 4;           // x rows: 4 (mod 32), conflict-free A fragments
+  static constexpr int PQ = 72;               // [q | k] and weight rows: 8 (mod 32)
+  // [q | k] product: each warp one 16-pixel m-tile and NPW of the 8 n-tiles
+  static constexpr int MT = P / 16, NGRP = kWarps / MT, NPW = 8 / NGRP;
+  static constexpr int X = P * PX, QK = P * PQ, W = CP * PQ;
+  static constexpr int SMEM_FLOATS = 2 * X + QK + W;
+  static_assert(CP % 32 == 0 && kWarps % MT == 0 && NPW * NGRP == 8, "tile does not fit the warps");
+  static_assert(P % 32 == 0 && 4 * 64 <= QK, "32-pixel Gram slices; the norm partials reuse the [q | k] tile");
+};
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
 attn_stats_kernel(const float* __restrict__ x, const float* __restrict__ wq, const float* __restrict__ wk,
                   float* __restrict__ part, int npix, int nblk) {
-  constexpr int TP = kStatsTile, PQ = TP + 1;  // odd pitch: rows in distinct banks
-  constexpr int NE = C * kHeadDim;             // head-diagonal entries
-  constexpr int NG = cdiv(NE, kThreads);
-  extern __shared__ float smem[];
-  float* s_x = smem;            // (C, TP)
-  float* s_q = s_x + C * TP;    // (C, PQ)
-  float* s_k = s_q + C * PQ;    // (C, PQ)
-  const int n = blockIdx.y, blk = blockIdx.x;
+  using S = Stats<C>;
+  constexpr int CP = S::CP, P = S::P, PX = S::PX, PQ = S::PQ;
+  extern __shared__ __align__(16) float stats_smem[];
+  float* s_x = stats_smem;         // two (P, PX) x tiles
+  float* s_qk = s_x + 2 * S::X;    // (P, PQ): [q | k] of the head over the tile
+  float* s_w = s_qk + S::QK;       // (CP, PQ): the head's [Wq | Wk] columns
+  const int blk = blockIdx.x, hd = blockIdx.y, n = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const float* src = x + static_cast<size_t>(n) * npix * C;
 
-  int row_k[NG], row_q[NG];
-#pragma unroll
-  for (int j = 0; j < NG; ++j) {
-    const int e = threadIdx.x + j * kThreads;
-    const int hd = e / (kHeadDim * kHeadDim), r = e % (kHeadDim * kHeadDim);
-    row_k[j] = (hd * kHeadDim + r / kHeadDim) * PQ;
-    row_q[j] = (hd * kHeadDim + r % kHeadDim) * PQ;
+  // The head's weights, zero beyond C rows and 31 columns (rows of C floats
+  // start anywhere: 4-byte copies, once per block).
+  for (int i = tid; i < CP * 64; i += kThreads) {
+    const int r = i / 64, col = i % 64, e = col & 31;
+    const float* wsrc = col < 32 ? wq : wk;
+    const bool ok = r < C && e < kHeadDim;
+    tc::cp_async<4>(s_w + r * PQ + col, ok ? wsrc + static_cast<size_t>(r) * C + hd * kHeadDim + e : wsrc, ok);
   }
-  float g[NG];
-#pragma unroll
-  for (int j = 0; j < NG; ++j) g[j] = 0.f;
-  float ss = 0.f;
+  auto load_x = [&](int tile, float* dst) {
+    constexpr int V = tc::copy_vec(C), UPP = CP / V;  // copies per pixel
+    const int p0 = tile * P;
+    for (int i = tid; i < P * UPP; i += kThreads) {
+      const int p = i / UPP, c = (i % UPP) * V;
+      const bool ok = c < C && p0 + p < npix;
+      tc::cp_async<4 * V>(dst + p * PX + c, ok ? src + static_cast<size_t>(p0 + p) * C + c : src, ok);
+    }
+  };
+  const int ntiles = cdiv(npix, P);
+  if (blk < ntiles) load_x(blk, s_x);
+  tc::cp_async_commit();
 
-  const int ntiles = cdiv(npix, TP);
-  for (int t = blk; t < ntiles; t += nblk) {
-    const int p0 = t * TP;
-    for (int i = threadIdx.x; i < TP * C; i += kThreads) {
-      const int p = i / C, c = i - p * C;
-      s_x[c * TP + p] = p0 + p < npix ? src[static_cast<size_t>(p0) * C + i] : 0.f;
-    }
-    __syncthreads();
-    warp_gemm<1, kWarps>(s_x, TP, C, wq, C, C, TP, [](int p) { return p; },
-                 [&](int o, int p, float v) { s_q[o * PQ + p] = v; });
-    warp_gemm<1, kWarps>(s_x, TP, C, wk, C, C, TP, [](int p) { return p; },
-                 [&](int o, int p, float v) { s_k[o * PQ + p] = v; });
-    __syncthreads();
+  const int wm = warp % S::MT, wg = warp / S::MT;  // [q | k] product: m-tile, n-group
+  const int gm = warp & 1, gn = warp >> 1;          // Gram: k rows gm*16.., q columns gn*8..
+  const int cq = tid & 63, quarter = tid >> 6;      // norms: [q | k] column, pixel residue mod 4
+  float gacc[4] = {0.f, 0.f, 0.f, 0.f};
+  float ss = 0.f;
+  int buf = 0;
+  for (int tile = blk; tile < ntiles; tile += nblk, buf ^= 1) {
+    // The other buffer was last read by the previous tile's [q | k] product,
+    // which every warp finished before that tile's second barrier.
+    if (tile + nblk < ntiles) load_x(tile + nblk, s_x + (buf ^ 1) * S::X);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();  // this tile landed; every warp is done with the last tile's [q | k]
+
+    // 1. [q | k] = x [Wq | Wk] over the tile, 32-deep slices summed apart.
+    {
+      const float* xs = s_x + buf * S::X;
+      const float* r0 = xs + (wm * 16 + g) * PX;
+      const float* r1 = r0 + 8 * PX;
+      float d[S::NPW][4] = {};
 #pragma unroll
-    for (int j = 0; j < NG; ++j) {
-      if (threadIdx.x + j * kThreads >= NE) continue;
-      const float* kr = s_k + row_k[j];
-      const float* qr = s_q + row_q[j];
-      float acc = 0.f;
-#pragma unroll 8
-      for (int p = 0; p < TP; ++p) acc = fmaf(kr[p], qr[p], acc);
-      g[j] += acc;
-    }
-    if (threadIdx.x < 2 * C) {
-      const float* r = threadIdx.x < C ? s_q + threadIdx.x * PQ : s_k + (threadIdx.x - C) * PQ;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int p = 0; p < TP; ++p) acc = fmaf(r[p], r[p], acc);
-      ss += acc;
+      for (int s0 = 0; s0 < CP; s0 += 32) {
+        float sl[S::NPW][4] = {};
+#pragma unroll
+        for (int kk = s0; kk < s0 + 32; kk += 8) {
+          const tc::FragA a = tc::load_a(r0 + kk, r1 + kk, t);
+#pragma unroll
+          for (int j = 0; j < S::NPW; ++j)
+            tc::mma3(sl[j], a, tc::load_b(s_w + kk * PQ + (wg * S::NPW + j) * 8, PQ, g, t));
+        }
+#pragma unroll
+        for (int j = 0; j < S::NPW; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[j][q] += sl[j][q];
+      }
+#pragma unroll
+      for (int j = 0; j < S::NPW; ++j) {
+        const int r = wm * 16 + g, col = (wg * S::NPW + j) * 8 + 2 * t;
+        *reinterpret_cast<float2*>(s_qk + r * PQ + col) = make_float2(d[j][0], d[j][1]);
+        *reinterpret_cast<float2*>(s_qk + (r + 8) * PQ + col) = make_float2(d[j][2], d[j][3]);
+      }
     }
     __syncthreads();
+
+    // 2. G += k^T q over the tile's pixels (the inner dimension), each
+    //    32-pixel slice summed apart: A[o][p] = k[p][o], B[p][e] = q[p][e].
+#pragma unroll
+    for (int p0 = 0; p0 < P; p0 += 32) {
+      float sl[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 32; kk += 8) {
+        const float* corner = s_qk + (p0 + kk) * PQ;
+        tc::mma3(sl, tc::load_a_t(corner + 32 + gm * 16, PQ, g, t), tc::load_b(corner + gn * 8, PQ, g, t));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gacc[q] += sl[q];
+    }
+    // 3. The squared norms in float32, each thread over a quarter of the pixels.
+#pragma unroll 4
+    for (int p = quarter; p < P; p += 4) {
+      const float v = s_qk[p * PQ + cq];
+      ss = fmaf(v, v, ss);
+    }
   }
+
+  tc::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the [q | k] tile
+  float* s_n = s_qk;
+  s_n[quarter * 64 + cq] = ss;
+  __syncthreads();
   float* dst = part + (static_cast<size_t>(n) * nblk + blk) * stats_size<C>();
 #pragma unroll
-  for (int j = 0; j < NG; ++j) {
-    const int e = threadIdx.x + j * kThreads;
-    if (e < NE) dst[e] = g[j];
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int o = gm * 16 + g + 8 * hf, e = gn * 8 + 2 * t + q;
+      if (o < kHeadDim && e < kHeadDim) dst[(hd * kHeadDim + o) * kHeadDim + e] = gacc[2 * hf + q];
+    }
+  if (tid < 64 && (tid & 31) < kHeadDim) {
+    const float v = ((s_n[tid] + s_n[64 + tid]) + s_n[128 + tid]) + s_n[192 + tid];
+    dst[C * kHeadDim + (tid < 32 ? 0 : C) + hd * kHeadDim + (tid & 31)] = v;
   }
-  if (threadIdx.x < 2 * C) dst[NE + threadIdx.x] = ss;
 }
 
-// out[n][e] = sum over blocks b, in order, of part[n][b][e].
+// out[n][e] = the sum over blocks b of part[n][b][e] in a fixed order: warp
+// w adds blocks w, w + 8, ... (lanes on 32 consecutive entries), then the
+// eight warp sums are added in warp order.
 __global__ void __launch_bounds__(kThreads)
 stats_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int nblk, int size) {
-  const int n = blockIdx.y;
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= size) return;
-  const float* p = part + static_cast<size_t>(n) * nblk * size + e;
+  __shared__ float s_sum[kWarps][32];
+  const int n = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
   float acc = 0.f;
-  for (int b = 0; b < nblk; ++b) acc += p[static_cast<size_t>(b) * size];
-  out[static_cast<size_t>(n) * size + e] = acc;
+  if (e < size) {
+    const float* p = part + static_cast<size_t>(n) * nblk * size + e;
+#pragma unroll 4
+    for (int b = warp; b < nblk; b += kWarps) acc += p[static_cast<size_t>(b) * size];
+  }
+  s_sum[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && e < size) {
+    float v = s_sum[0][lane];
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) v += s_sum[k][lane];
+    out[static_cast<size_t>(n) * size + e] = v;
+  }
 }
 
 template <int C>
 int launch_stats(const float* x, const float* wq, const float* wk, float* part, float* out, int n, int npix,
                  int nblk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * stats_smem_floats<C>();
+  const size_t smem = sizeof(float) * Stats<C>::SMEM_FLOATS;
   cudaError_t err = cudaFuncSetAttribute(attn_stats_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_stats_kernel<C><<<dim3(nblk, n), kThreads, smem, stream>>>(x, wq, wk, part, npix, nblk);
+  attn_stats_kernel<C><<<dim3(nblk, C / kHeadDim, n), kThreads, smem, stream>>>(x, wq, wk, part, npix, nblk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int size = stats_size<C>();
-  stats_reduce_kernel<<<dim3(cdiv(size, kThreads), n), kThreads, 0, stream>>>(part, out, nblk, size);
+  stats_reduce_kernel<<<dim3(cdiv(size, 32), n), kThreads, 0, stream>>>(part, out, nblk, size);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// msab_apply_kernel: MSAB pass B over one TH x TW output tile.
-// Regions R3 (3-pixel halo), R2, R1 and R0 (the tile), planar in shared
-// memory; (ly, lx) of R_k is (ly - k + j, lx - k + j) of R_j's origin.
+// msab_pos_kernel: res1 = x M + bproj + dw3(gelu(dw3(x Wv, pos0)), pos2) + x
+// over one TH x TW output tile. R2 is the tile with a 2-pixel halo, R1 with
+// 1, R0 the tile; pixel-major in shared memory.
 // ---------------------------------------------------------------------------
 
-// Shared memory allows one block per SM at C = 62 and 124, so those blocks
-// take 16 warps (each warp then has one or two output groups of a GEMM);
-// at C = 31 three 8-warp blocks share an SM and 8 output groups keep 8
-// warps busy.
+// The output tile built for each C (POS_TILES in ops/fused_msab.py): the
+// largest of which two blocks fit an H100 SM (106 / 95 / 115 KB; two blocks
+// may take 115,712 bytes). At C = 62 an 8x16 tile would take 150 KB and at
+// C = 124 an 8x8 one 154 KB: x over R2 alone is N2 (CP + 4) floats.
 template <int C>
-struct ApplyTile {
-  static constexpr int kH = C > 62 ? 4 : 8, kW = 8;
-  static constexpr int kThreads = C > 31 ? 512 : 256;
+struct PosTile;
+template <>
+struct PosTile<31> {
+  static constexpr int kH = 8, kW = 16;
+};
+template <>
+struct PosTile<62> {
+  static constexpr int kH = 8, kW = 8;
+};
+template <>
+struct PosTile<124> {
+  static constexpr int kH = 4, kW = 8;
 };
 
 template <int C>
-__host__ __device__ constexpr size_t apply_smem_floats() {
-  constexpr int TH = ApplyTile<C>::kH, TW = ApplyTile<C>::kW;
-  return static_cast<size_t>(C) * (2 * (TH + 6) * (TW + 6) + (TH + 4) * (TW + 4));
-}
+struct Pos {
+  static constexpr int TH = PosTile<C>::kH, TW = PosTile<C>::kW;
+  static constexpr int CP = cdiv(C, 8) * 8, NCHUNK = CP / 32;  // 32-channel output chunks
+  static constexpr int W2 = TW + 4, N2 = (TH + 4) * W2, W1 = TW + 2, N1 = (TH + 2) * W1, N0 = TH * TW;
+  // pitches (floats): A rows 4 (mod 32), B rows and float2-stored rows 8
+  static constexpr int PX = CP + 4, PV = 40, PT = 32, PW = 40;
+  static constexpr int MT2 = cdiv(N2, 16), MT0 = N0 / 16;
+  // the R0 product: each warp one m-tile and NA of the chunk's 4 n-tiles
+  static constexpr int NA = MT0 * 4 / kWarps, AG = 4 / NA;
+  static constexpr int RL = W1 % 6 == 0 ? 6 : 5;  // T's run of pixels per thread along a row
+  static constexpr int XS = N2 * PX, VS = N2 * PV, TS = N1 * PT, WS = CP * PW;
+  static constexpr int SMEM_FLOATS = XS + VS + TS + 2 * WS;
+  static_assert(CP % 32 == 0 && N0 % 16 == 0 && NA * AG == 4 && MT0 * AG == kWarps, "tile does not fit the warps");
+  static_assert(W1 % RL == 0 && TW % 4 == 0 && N0 * PV <= VS, "runs within rows; the output chunk reuses V's space");
+};
 
 template <int C>
-__global__ void __launch_bounds__(ApplyTile<C>::kThreads)
-msab_apply_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ m,
-                  const float* __restrict__ wv, const float* __restrict__ bproj, const float* __restrict__ pos0,
-                  const float* __restrict__ pos2, const float* __restrict__ lnw, const float* __restrict__ lnb,
-                  const float* __restrict__ w0, const float* __restrict__ dwk, const float* __restrict__ w4, int h,
-                  int w) {
-  constexpr int TH = ApplyTile<C>::kH, TW = ApplyTile<C>::kW;
-  constexpr int W3 = TW + 6, N3 = (TH + 6) * W3;
-  constexpr int W2 = TW + 4, N2 = (TH + 4) * W2;
-  constexpr int W1 = TW + 2, N1 = (TH + 2) * W1;
-  constexpr int N0 = TH * TW;
-  constexpr int C4 = 4 * C;
-  constexpr int NT = ApplyTile<C>::kThreads, NW = NT / 32;
-  extern __shared__ float smem[];
-  float* s_a = smem;          // X over R3; later the hidden chunk H over R1, then H2 over R0
-  float* s_b = s_a + C * N3;  // V over R3; later R (res1) over R1, then O (output) over R0
-  float* s_c = s_b + C * N3;  // T over R2; later Y (LayerNorm) over R1
-  float* s_h2 = s_a + C * N1;
-  float* s_o = s_b + C * N1;
+__global__ void __launch_bounds__(kThreads, 2)
+msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ m,
+                const float* __restrict__ wv, const float* __restrict__ bproj, const float* __restrict__ pos0,
+                const float* __restrict__ pos2, int h, int w) {
+  using P = Pos<C>;
+  constexpr int TH = P::TH, TW = P::TW, CP = P::CP, W2 = P::W2, N2 = P::N2, W1 = P::W1, N1 = P::N1, N0 = P::N0;
+  constexpr int PX = P::PX, PV = P::PV, PT = P::PT, PW = P::PW, RL = P::RL;
+  extern __shared__ __align__(16) float pos_smem[];
+  float* s_x = pos_smem;     // (N2, PX): x over R2
+  float* s_v = s_x + P::XS;  // (N2, PV): V's chunk over R2; later the output chunk over R0
+  float* s_t = s_v + P::VS;  // (N1, PT): T's chunk over R1
+  float* s_w = s_t + P::TS;  // [Wv chunk (CP, PW) | M chunk (CP, PW)]
   const int n = blockIdx.z;
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   auto inside = [&](int gy, int gx) { return gy >= 0 && gy < h && gx >= 0 && gx < w; };
   const float* src = x + static_cast<size_t>(n) * h * w * C;
+  const float* mn = m + static_cast<size_t>(n) * C * C;
 
-  // 1. X = x over R3, zero outside the image.
-  for (int i = threadIdx.x; i < N3 * C; i += NT) {
-    const int p = i / C, c = i - p * C;
-    const int gy = y0 - 3 + p / W3, gx = x0 - 3 + p % W3;
-    s_a[c * N3 + p] = inside(gy, gx) ? src[(static_cast<size_t>(gy) * w + gx) * C + c] : 0.f;
-  }
-  __syncthreads();
-
-  // 2. V = X Wv over R3 (zero outside the image, as X is).
-  warp_gemm<cdiv(N3, 32), NW>(s_a, N3, C, wv, C, C, N3, [](int p) { return p; },
-                          [&](int o, int p, float v) { s_b[o * N3 + p] = v; });
-  __syncthreads();
-
-  // 3. T = gelu(dw3(V, pos0)) over R2, zero outside the image.
-  for (int i = threadIdx.x; i < N2 * C; i += NT) {
-    const int c = i / N2, p = i - c * N2;
-    const int ly = p / W2, lx = p - ly * W2;
-    float t = 0.f;
-    if (inside(y0 - 2 + ly, x0 - 2 + lx)) {
-      const float* v = s_b + c * N3 + ly * W3 + lx;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < 9; ++d) acc = fmaf(v[(d / 3) * W3 + d % 3], __ldg(pos0 + d * C + c), acc);
-      t = gelu(acc);
+  // Chunk j's slabs: columns [32 j, 32 j + 32) of Wv and of M, zero beyond C.
+  auto load_w = [&](int j) {
+    constexpr int V = tc::copy_vec(C), UPR = 32 / V;
+    for (int i = tid; i < 2 * CP * UPR; i += kThreads) {
+      const int which = i / (CP * UPR), rem = i % (CP * UPR);
+      const int r = rem / UPR, col = (rem % UPR) * V, c = j * 32 + col;
+      const float* wsrc = which ? mn : wv;
+      const bool ok = r < C && c < C;
+      tc::cp_async<4 * V>(s_w + which * P::WS + r * PW + col, ok ? wsrc + static_cast<size_t>(r) * C + c : wsrc, ok);
     }
-    s_c[c * N2 + p] = t;
-  }
-  __syncthreads();
-
-  // 4. R = X M + bproj + dw3(T, pos2) + X over R1, into s_b (V is dead).
-  warp_gemm<cdiv(N1, 32), NW>(
-      s_a, N3, C, m + static_cast<size_t>(n) * C * C, C, C, N1,
-      [](int p) { return (p / W1 + 2) * W3 + p % W1 + 2; },
-      [&](int o, int p, float v) {
-        const int ly = p / W1, lx = p - ly * W1;
-        const float* t = s_c + o * N2 + ly * W2 + lx;
-        float pos = 0.f;
-#pragma unroll
-        for (int d = 0; d < 9; ++d) pos = fmaf(t[(d / 3) * W2 + d % 3], __ldg(pos2 + d * C + o), pos);
-        s_b[o * N1 + p] = v + __ldg(bproj + o) + pos + s_a[o * N3 + (ly + 2) * W3 + lx + 2];
-      });
-  __syncthreads();
-
-  // 5. Y = LayerNorm(R) over R1 (biased variance, eps 1e-5), into s_c (T is
-  //    dead); O = R over R0, the FFN's residual.
-  for (int p = threadIdx.x; p < N1; p += NT) {
-    float mu = 0.f;
-    for (int c = 0; c < C; ++c) mu += s_b[c * N1 + p];
-    mu /= C;
-    float var = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float d = s_b[c * N1 + p] - mu;
-      var = fmaf(d, d, var);
+  };
+  // x over R2 (zero outside the image and beyond C), with chunk 0's slabs.
+  {
+    constexpr int V = tc::copy_vec(C), UPP = CP / V;
+    for (int i = tid; i < N2 * UPP; i += kThreads) {
+      const int p = i / UPP, c = (i % UPP) * V;
+      const int gy = y0 - 2 + p / W2, gx = x0 - 2 + p % W2;
+      const bool ok = c < C && inside(gy, gx);
+      tc::cp_async<4 * V>(s_x + p * PX + c, ok ? src + (static_cast<size_t>(gy) * w + gx) * C + c : src, ok);
     }
-    var /= C;
-    const float inv = 1.0f / sqrtf(var + 1e-5f);
-    for (int c = 0; c < C; ++c) s_c[c * N1 + p] = (s_b[c * N1 + p] - mu) * inv * __ldg(lnw + c) + __ldg(lnb + c);
   }
-  for (int i = threadIdx.x; i < C * N0; i += NT) {
-    const int c = i / N0, p = i - c * N0;
-    s_o[i] = s_b[c * N1 + (p / TW + 1) * W1 + p % TW + 1];
-  }
-  __syncthreads();
+  load_w(0);
+  tc::cp_async_commit();
 
-  // 6. The FFN, C hidden channels at a time.
-  for (int k0 = 0; k0 < C4; k0 += C) {
-    // H = gelu(Y W0[:, k0:k0+C]) over R1, zero outside the image.
-    warp_gemm<cdiv(N1, 32), NW>(s_c, N1, C, w0 + k0, C4, C, N1, [](int p) { return p; },
-                            [&](int o, int p, float v) {
-                              const int ly = p / W1, lx = p - ly * W1;
-                              s_a[o * N1 + p] = inside(y0 - 1 + ly, x0 - 1 + lx) ? gelu(v) : 0.f;
-                            });
-    __syncthreads();
-    // H2 = gelu(dw3(H)) over R0.
-    for (int i = threadIdx.x; i < C * N0; i += NT) {
-      const int c = i / N0, p = i - c * N0;
-      const float* hh = s_a + c * N1 + (p / TW) * W1 + p % TW;
-      float acc = 0.f;
+  // The R0 product's rows of this lane: R0 pixel r is R2 pixel (r / TW + 2, r % TW + 2).
+  const int am = warp / P::AG, an = (warp % P::AG) * P::NA;
+  const int ra = am * 16 + g, rb = ra + 8;
+  const float* xa = s_x + ((ra / TW + 2) * W2 + ra % TW + 2) * PX;
+  const float* xb = s_x + ((rb / TW + 2) * W2 + rb % TW + 2) * PX;
+
+  for (int j = 0; j < P::NCHUNK; ++j) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // chunk j's slabs (and x) landed; chunk j - 1's stores are done with s_v
+    const float* swv = s_w;
+    const float* smc = s_w + P::WS;
+
+    // 1. V = x Wv[:, chunk] over R2 (zero outside the image, as x is), one
+    //    16-row m-tile and the chunk's 4 n-tiles per unit; rows past N2
+    //    read row N2 - 1 and are not stored.
+    for (int u = warp; u < P::MT2; u += kWarps) {
+      const int r0 = u * 16 + g, r1 = r0 + 8;
+      const float* p0 = s_x + min(r0, N2 - 1) * PX;
+      const float* p1 = s_x + min(r1, N2 - 1) * PX;
+      float d[4][4] = {};
 #pragma unroll
-      for (int d = 0; d < 9; ++d) acc = fmaf(hh[(d / 3) * W1 + d % 3], __ldg(dwk + d * C4 + k0 + c), acc);
-      s_h2[i] = gelu(acc);
+      for (int s0 = 0; s0 < CP; s0 += 32) {
+        float sl[4][4] = {};
+#pragma unroll
+        for (int kk = s0; kk < s0 + 32; kk += 8) {
+          const tc::FragA a = tc::load_a(p0 + kk, p1 + kk, t);
+#pragma unroll
+          for (int jn = 0; jn < 4; ++jn) tc::mma3(sl[jn], a, tc::load_b(swv + kk * PW + jn * 8, PW, g, t));
+        }
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[jn][q] += sl[jn][q];
+      }
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        const int col = jn * 8 + 2 * t;
+        if (r0 < N2) *reinterpret_cast<float2*>(s_v + r0 * PV + col) = make_float2(d[jn][0], d[jn][1]);
+        if (r1 < N2) *reinterpret_cast<float2*>(s_v + r1 * PV + col) = make_float2(d[jn][2], d[jn][3]);
+      }
+    }
+    // 2. A = x M[:, chunk] over R0, held in fragments until step 4.
+    float acc[P::NA][4] = {};
+#pragma unroll
+    for (int s0 = 0; s0 < CP; s0 += 32) {
+      float sl[P::NA][4] = {};
+#pragma unroll
+      for (int kk = s0; kk < s0 + 32; kk += 8) {
+        const tc::FragA a = tc::load_a(xa + kk, xb + kk, t);
+#pragma unroll
+        for (int jn = 0; jn < P::NA; ++jn) tc::mma3(sl[jn], a, tc::load_b(smc + kk * PW + (an + jn) * 8, PW, g, t));
+      }
+#pragma unroll
+      for (int jn = 0; jn < P::NA; ++jn)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[jn][q] += sl[jn][q];
+    }
+    __syncthreads();  // V is complete; every warp is done with the slabs
+    if (j + 1 < P::NCHUNK) {  // the next chunk's slabs load during steps 3-5
+      load_w(j + 1);
+      tc::cp_async_commit();
+    }
+
+    // 3. T = gelu(dw3(V, pos0)) over R1, zero outside the image (the outer
+    //    depthwise's zero pad): a thread per (channel, run of RL pixels).
+    {
+      constexpr int RUNS = N1 / RL, PER = cdiv(RUNS * 32, kThreads);
+      const int c = lane, ch = j * 32 + c;
+      float kw[9];
+#pragma unroll
+      for (int d = 0; d < 9; ++d) kw[d] = ch < C ? __ldg(pos0 + d * C + ch) : 0.f;
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        const int run = warp + q * kWarps;
+        if (run >= RUNS) break;
+        const int ly = run / (W1 / RL), lx = (run % (W1 / RL)) * RL;
+        const float* vv = s_v + (ly * W2 + lx) * PV + c;  // R2 (ly, lx): the window corner of R1 (ly, lx)
+        float v[RL];
+#pragma unroll
+        for (int jj = 0; jj < RL; ++jj) v[jj] = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int ix = 0; ix < RL + 2; ++ix) {
+            const float hv = vv[(dy * W2 + ix) * PV];
+#pragma unroll
+            for (int jj = 0; jj < RL; ++jj)
+              if (ix - jj >= 0 && ix - jj < 3) v[jj] = fmaf(hv, kw[dy * 3 + ix - jj], v[jj]);
+          }
+#pragma unroll
+        for (int jj = 0; jj < RL; ++jj)
+          s_t[(ly * W1 + lx + jj) * PT + c] = inside(y0 - 1 + ly, x0 - 1 + lx + jj) ? gelu(v[jj]) : 0.f;
+      }
+    }
+    __syncthreads();  // T is complete; V is dead
+
+    // 4. The output chunk over R0 into V's space: A, then
+    //    ((A + bproj) + dw3(T, pos2)) + x, a thread per (channel, run of 4).
+    float* s_o = s_v;
+#pragma unroll
+    for (int jn = 0; jn < P::NA; ++jn) {
+      const int col = (an + jn) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(s_o + ra * PV + col) = make_float2(acc[jn][0], acc[jn][1]);
+      *reinterpret_cast<float2*>(s_o + rb * PV + col) = make_float2(acc[jn][2], acc[jn][3]);
     }
     __syncthreads();
-    // O += H2 W4[k0:k0+C, :]
-    warp_gemm<cdiv(N0, 32), NW>(s_h2, N0, C, w4 + static_cast<size_t>(k0) * C, C, C, N0,
-                                [](int p) { return p; },
-                            [&](int o, int p, float v) { s_o[o * N0 + p] += v; });
+    {
+      constexpr int RUNS = N0 / 4, PER = cdiv(RUNS * 32, kThreads);
+      const int c = lane, ch = j * 32 + c;
+      float kw[9];
+#pragma unroll
+      for (int d = 0; d < 9; ++d) kw[d] = ch < C ? __ldg(pos2 + d * C + ch) : 0.f;
+      const float bias = ch < C ? __ldg(bproj + ch) : 0.f;
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        const int run = warp + q * kWarps;
+        if (run >= RUNS) break;
+        const int ly = run / (TW / 4), lx = (run % (TW / 4)) * 4;
+        const float* tt = s_t + (ly * W1 + lx) * PT + c;
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int ix = 0; ix < 6; ++ix) {
+            const float tv = tt[(dy * W1 + ix) * PT];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              if (ix - jj >= 0 && ix - jj < 3) v[jj] = fmaf(tv, kw[dy * 3 + ix - jj], v[jj]);
+          }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float* o = s_o + (ly * TW + lx + jj) * PV + c;
+          *o = ((*o + bias) + v[jj]) + s_x[((ly + 2) * W2 + lx + jj + 2) * PX + ch];
+        }
+      }
+    }
     __syncthreads();
-  }
 
-  // 7. Store O over the tile's pixels inside the image.
-  float* dst = out + static_cast<size_t>(n) * h * w * C;
-  for (int i = threadIdx.x; i < N0 * C; i += NT) {
-    const int p = i / C, c = i - p * C;
-    const int gy = y0 + p / TW, gx = x0 + p % TW;
-    if (gy < h && gx < w) dst[(static_cast<size_t>(gy) * w + gx) * C + c] = s_o[c * N0 + p];
+    // 5. Store the chunk's channels of each tile row inside the image.
+    const int nch = min(32, C - j * 32), cols = min(TW, w - x0);
+    for (int ly = 0; ly < TH && y0 + ly < h; ++ly) {
+      float* row = out + ((static_cast<size_t>(n) * h + y0 + ly) * w + x0) * C + j * 32;
+      for (int e = tid; e < cols * nch; e += kThreads) {
+        const int p = e / nch, c = e - p * nch;
+        row[static_cast<size_t>(p) * C + c] = s_o[(ly * TW + p) * PV + c];
+      }
+    }
   }
 }
 
 template <int C>
-int launch_apply(const float* x, float* out, const float* m, const float* wv, const float* bproj,
-                 const float* pos0, const float* pos2, const float* lnw, const float* lnb, const float* w0,
-                 const float* dwk, const float* w4, int n, int h, int w, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * apply_smem_floats<C>();
-  cudaError_t err = cudaFuncSetAttribute(msab_apply_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+int launch_pos(const float* x, float* out, const float* m, const float* wv, const float* bproj, const float* pos0,
+               const float* pos2, int n, int h, int w, int th, int tw, cudaStream_t stream) {
+  using P = Pos<C>;
+  if (th != P::TH || tw != P::TW) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * P::SMEM_FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(msab_pos_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(cdiv(w, ApplyTile<C>::kW), cdiv(h, ApplyTile<C>::kH), n);
-  msab_apply_kernel<C><<<grid, ApplyTile<C>::kThreads, smem, stream>>>(x, out, m, wv, bproj, pos0, pos2, lnw,
-                                                                        lnb, w0, dwk, w4, h, w);
+  const dim3 grid(cdiv(w, P::TW), cdiv(h, P::TH), n);
+  msab_pos_kernel<C><<<grid, kThreads, smem, stream>>>(x, out, m, wv, bproj, pos0, pos2, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -715,8 +910,9 @@ int av_msab_conv_smem(int k, int cin, int cout) {
   return 0;
 }
 
-// stats: x (n, npix, c), wq/wk (c, c), part (n, nblk, c*31 + 2c) scratch,
-// out (n, c*31 + 2c) = [G blocks (heads, 31, 31) | sum q^2 | sum k^2].
+// stats: x (n, npix, c) starting on 16 bytes, wq/wk (c, c), part
+// (n, nblk, c*31 + 2c) scratch, out (n, c*31 + 2c) = [G blocks
+// (heads, 31, 31) | sum q^2 | sum k^2].
 int av_msab_stats(const void* x, const void* wq, const void* wk, void* part, void* out, int n, int npix, int c,
                   int nblk, void* stream) {
   if (n < 1 || n > 65535 || npix < 1 || nblk < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -732,24 +928,36 @@ int av_msab_stats(const void* x, const void* wq, const void* wk, void* part, voi
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// apply: x/out (n, h, w, c), m (n, c, c), wv (c, c), bproj (c), pos0/pos2
-// (3, 3, c), lnw/lnb (c), w0 (c, 4c), dwk (3, 3, 4c), w4 (4c, c).
-int av_msab_apply(const void* x, void* out, const void* m, const void* wv, const void* bproj, const void* pos0,
-                  const void* pos2, const void* lnw, const void* lnb, const void* w0, const void* dwk,
-                  const void* w4, int n, int h, int w, int c, void* stream) {
+// pos: x/out (n, h, w, c), m (n, c, c), wv (c, c), bproj (c), pos0/pos2
+// (3, 3, c); x, m and wv start on 4 * copy_vec(c) bytes (16 at c = 124, 8
+// at 62); th x tw must be the tile built for c (PosTile).
+int av_msab_pos(const void* x, void* out, const void* m, const void* wv, const void* bproj, const void* pos0,
+                const void* pos2, int n, int h, int w, int c, int th, int tw, void* stream) {
   if (!frames_ok(n, h, w)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-#define AV_APPLY(CC)                                                                                               \
-  launch_apply<CC>(static_cast<const float*>(x), static_cast<float*>(out), static_cast<const float*>(m),          \
-                   static_cast<const float*>(wv), static_cast<const float*>(bproj),                               \
-                   static_cast<const float*>(pos0), static_cast<const float*>(pos2),                              \
-                   static_cast<const float*>(lnw), static_cast<const float*>(lnb), static_cast<const float*>(w0), \
-                   static_cast<const float*>(dwk), static_cast<const float*>(w4), n, h, w, s)
-  if (c == 31) return AV_APPLY(31);
-  if (c == 62) return AV_APPLY(62);
-  if (c == 124) return AV_APPLY(124);
-#undef AV_APPLY
+  const auto* xf = static_cast<const float*>(x);
+  auto* of = static_cast<float*>(out);
+  const auto* mf = static_cast<const float*>(m);
+  const auto* vf = static_cast<const float*>(wv);
+  const auto* bf = static_cast<const float*>(bproj);
+  const auto* p0 = static_cast<const float*>(pos0);
+  const auto* p2 = static_cast<const float*>(pos2);
+  if (c == 31) return launch_pos<31>(xf, of, mf, vf, bf, p0, p2, n, h, w, th, tw, s);
+  if (c == 62) return launch_pos<62>(xf, of, mf, vf, bf, p0, p2, n, h, w, th, tw, s);
+  if (c == 124) return launch_pos<124>(xf, of, mf, vf, bf, p0, p2, n, h, w, th, tw, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of one block, in bytes, of the pos kernel
+// (kind 0) or the stats kernel (kind 1) at c; 0 for a c not built.
+int av_msab_smem(int kind, int c) {
+  if (kind == 0 && c == 31) return sizeof(float) * Pos<31>::SMEM_FLOATS;
+  if (kind == 0 && c == 62) return sizeof(float) * Pos<62>::SMEM_FLOATS;
+  if (kind == 0 && c == 124) return sizeof(float) * Pos<124>::SMEM_FLOATS;
+  if (kind == 1 && c == 31) return sizeof(float) * Stats<31>::SMEM_FLOATS;
+  if (kind == 1 && c == 62) return sizeof(float) * Stats<62>::SMEM_FLOATS;
+  if (kind == 1 && c == 124) return sizeof(float) * Stats<124>::SMEM_FLOATS;
+  return 0;
 }
 
 // up_fuse: fea (n, h, w, c), skip (n, 2h, 2w, c/2), out (n, 2h, 2w, c/2),

@@ -68,6 +68,19 @@ __device__ __forceinline__ FragA load_a(const float* row0, const float* row1, in
   return f;
 }
 
+// An A fragment of the transpose of a (K, M) row-major tile at pitch
+// `pitch`, from the tile's (k0, m0) corner: A[m][k] = T[k][m], so
+// a0 = T[k0 + t][m0 + g], a1 = T[k0 + t][m0 + g + 8], a2 = T[k0 + t + 4][m0 + g],
+// a3 = T[k0 + t + 4][m0 + g + 8].
+__device__ __forceinline__ FragA load_a_t(const float* corner, int pitch, int g, int t) {
+  FragA f;
+  split(corner[t * pitch + g], f.hi[0], f.lo[0]);
+  split(corner[t * pitch + g + 8], f.hi[1], f.lo[1]);
+  split(corner[(t + 4) * pitch + g], f.hi[2], f.lo[2]);
+  split(corner[(t + 4) * pitch + g + 8], f.hi[3], f.lo[3]);
+  return f;
+}
+
 // A B fragment of a (K, N) row-major tile at pitch `pitch`, from the
 // tile's (k0, n0) corner: b0 = B[k0 + t][n0 + g], b1 = B[k0 + t + 4][n0 + g].
 __device__ __forceinline__ FragB load_b(const float* corner, int pitch, int g, int t) {

@@ -13,12 +13,19 @@ carry every convolution and MSAB block of ``models/mst_plus_plus.py`` on
   ``_conv3_stats_kernel``, ``_down4_kernel`` and ``_down4_stats_kernel``;
 - ``attn_stats``: MSAB pass A, per frame q = x Wq, k = x Wk, the
   head-diagonal blocks of G = k^T q and the squared norms sum q^2, sum k^2
-  over every pixel. It replaces ``_stats_kernel`` (and the stats the TPU
-  producers accumulate in ``_accum_stats``);
-- ``msab_apply``: MSAB pass B, pos = dw3(gelu(dw3(x Wv))),
-  res1 = x M + b + pos + x, then LayerNorm and the FFN
-  (1x1 C -> 4C, GELU, depthwise 3x3, GELU, 1x1 4C -> C) plus res1. It
-  replaces ``_apply_kernel``;
+  over every pixel, with q, k and G on the tensor cores in 3xTF32 (one
+  block per run of pixel tiles and head; ``stats_blocks`` fixes the runs
+  per frame, and a second kernel adds the blocks' partial sums in a fixed
+  order). It replaces ``_stats_kernel`` (and the stats the TPU producers
+  accumulate in ``_accum_stats``);
+- ``msab_apply``: MSAB pass B in two kernels. ``msab_pos`` computes
+  res1 = x M + b + dw3(gelu(dw3(x Wv))) + x (both products in 3xTF32, one
+  output tile per C, ``POS_TILES``; ``pos_tile_for`` raises where two
+  blocks of it do not fit an SM), then ``fused_mst.ffn`` (the MST-L FFN
+  kernel) takes LayerNorm and the FFN (1x1 C -> 4C, GELU, depthwise 3x3,
+  GELU, 1x1 4C -> C) plus res1. Together they replace ``_apply_kernel``.
+  Splitting costs one device-memory round trip of res1 and keeps the
+  pos kernel's halo at 2 pixels;
 - ``up_fuse``: the decoder's 2x2 stride-2 transposed convolution (one bias
   per (dy, dx, out)), depth-to-space and the 1x1 fuse over [up | skip]. It
   replaces ``_up_fuse_kernel`` and ``_up_fuse_stats_kernel``.
@@ -32,8 +39,9 @@ On a CUDA tensor each wrapper launches its CUDA C++ kernel from
 ``csrc/fused_msab.cu`` or raises; on a CPU tensor it takes its plain
 version. Nothing falls back. The TPU pixel packing, neighbour-pack
 matrices, GELU polynomial and bf16 products are not carried over: the
-kernels compute in float32 with ``erff`` (the convolution's products in
-3xTF32: each operand split into two TF32 parts, the sum in float32).
+kernels compute in float32 with ``erff`` (the products of ``conv``,
+``attn_stats`` and ``msab_pos`` in 3xTF32: each operand split into two TF32
+parts, the sum in float32).
 
 Weights are in the layouts the kernels read, made once per model by
 ``models/mst_plus_plus.py``: a convolution as (K, K, Cin, Cout), a 1x1
@@ -54,14 +62,18 @@ from animal_vision_tpu_torch.ops import _build
 #: Kernel launches, one per wrapper call (plain-version calls are not counted).
 LAUNCHES = {"conv_kernel": 0, "attn_stats_kernel": 0, "msab_apply_kernel": 0, "up_fuse_kernel": 0}
 
-#: Per-frame blocks of the stats kernel's first stage: the partial sums a
-#: frame is reduced from, in a fixed order (a function of the pixel count
-#: only, so a frame gets the same bits alone and in a batch).
-STATS_TILE = 32
-STATS_BLOCKS = 256
+#: Blocks per frame and head of the stats kernel's first stage: the partial
+#: sums a frame is reduced from, in a fixed order (a function of the pixel
+#: count only, so a frame gets the same bits alone and in a batch): one per
+#: STATS_TILE pixels, up to 1024, so that one 1080p frame fills the card.
+STATS_TILE = 64
+STATS_BLOCKS = 1024
 HEAD_DIM = 31
 #: Channel counts the MSAB kernels are built for (the three MST++ levels).
 MSAB_CHANNELS = (31, 62, 124)
+#: The output tile (rows, columns) of the pos kernel at each C (``PosTile``
+#: in ``csrc/fused_msab.cu``): the largest of which two blocks fit an H100 SM.
+POS_TILES = {31: (8, 16), 62: (8, 8), 124: (4, 8)}
 #: (K, Cin, Cout) the convolution kernel is built for: conv_in, the 3x3
 #: C -> C maps, the two 4x4 stride-2 downsamples.
 CONV_SHAPES = ((3, 3, 31), (3, 31, 31), (4, 31, 62), (4, 62, 124))
@@ -99,11 +111,12 @@ def _lib() -> ctypes.CDLL:
     if lib.av_msab_conv.argtypes is None:
         lib.av_msab_conv.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.av_msab_stats.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-        lib.av_msab_apply.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.av_msab_pos.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.av_msab_up_fuse.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.av_msab_conv_smem.argtypes = [_I, _I, _I]
-        for fn in (lib.av_msab_conv, lib.av_msab_stats, lib.av_msab_apply, lib.av_msab_up_fuse,
-                   lib.av_msab_conv_smem):
+        lib.av_msab_smem.argtypes = [_I, _I]
+        for fn in (lib.av_msab_conv, lib.av_msab_stats, lib.av_msab_pos, lib.av_msab_up_fuse,
+                   lib.av_msab_conv_smem, lib.av_msab_smem):
             fn.restype = ctypes.c_int
     return lib
 
@@ -186,16 +199,22 @@ def attn_stats_plain(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, heads:
     return blocks, (q * q).sum(dim=1), (k * k).sum(dim=1)
 
 
-def msab_apply_plain(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
-    """Plain version of ``msab_apply``: its FFN is ``fused_mst.ffn_plain``."""
-    from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
-
-    _check_apply(x, m, blk)
+def msab_pos_plain(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
+    """Plain version of ``msab_pos``."""
+    _check_pos(x, m, blk)
     n, h, w, c = x.shape
     pos = _dw3(F.gelu(_dw3(linalg.frame_matmul(x, blk.wv), blk.pos0)), blk.pos2)
     att = torch.bmm(x.reshape(n, h * w, c), m).reshape(x.shape)
-    res1 = att + blk.bproj + pos + x
-    return fused_mst.ffn_plain(res1, blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
+    return att + blk.bproj + pos + x
+
+
+def msab_apply_plain(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
+    """Plain version of ``msab_apply``: ``fused_mst.ffn_plain`` of
+    ``msab_pos_plain``."""
+    from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
+
+    _check_apply(x, m, blk)
+    return fused_mst.ffn_plain(msab_pos_plain(x, m, blk), blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
 
 
 def up_fuse_plain(fea: torch.Tensor, skip: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
@@ -291,8 +310,23 @@ def _check_stats(x, wq, wk, heads) -> None:
 
 
 def stats_blocks(npix: int) -> int:
-    """First-stage blocks per frame of ``attn_stats`` for ``npix`` pixels."""
+    """First-stage blocks per frame and head of ``attn_stats`` for ``npix``
+    pixels."""
     return max(1, min(-(-npix // STATS_TILE), STATS_BLOCKS))
+
+
+def stats_tile(c: int) -> int:
+    """Pixels per tile of the stats kernel at C = ``c`` (``Stats::P``)."""
+    return 32 if c > 62 else 64
+
+
+def stats_smem_bytes(c: int) -> int:
+    """Shared memory of one block of the stats kernel at C = ``c``: two
+    x tiles of ``stats_tile(c)`` pixels, the head's [q | k] over a tile and
+    its [Wq | Wk] columns, at the kernel's padded pitches. Must equal
+    ``Stats::SMEM_FLOATS`` in ``csrc/fused_msab.cu``."""
+    cp, p = -(-c // 8) * 8, stats_tile(c)
+    return 4 * (2 * p * (cp + 4) + p * 72 + cp * 72)
 
 
 def attn_stats(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, heads: int):
@@ -311,6 +345,8 @@ def attn_stats(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, heads: int):
     part = torch.empty((n, nblk, size), dtype=torch.float32, device=x.device)
     out = torch.empty((n, size), dtype=torch.float32, device=x.device)
     frames = x.contiguous()
+    if frames.data_ptr() % 16:  # the kernel copies pixel rows in 8- or 16-byte pieces
+        frames = frames.clone()
     _build.launch(_lib(), "av_msab_stats", x.device, frames.data_ptr(), _ptr(wq), _ptr(wk),
                   part.data_ptr(), out.data_ptr(), n, h * w, c, nblk)
     LAUNCHES["attn_stats_kernel"] += 1
@@ -318,32 +354,98 @@ def attn_stats(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, heads: int):
     return g, out[:, c * HEAD_DIM: c * HEAD_DIM + c], out[:, c * HEAD_DIM + c:]
 
 
-def _check_apply(x, m, blk: MsabWeights) -> None:
-    _frames(x, "msab_apply", MSAB_CHANNELS)
+def _check_pos(x, m, blk: MsabWeights) -> None:
+    _frames(x, "msab_pos", MSAB_CHANNELS)
     n, c = x.shape[0], x.shape[-1]
-    if tuple(m.shape) != (n, c, c) or tuple(blk.w0.shape) != (c, 4 * c) or tuple(blk.w4.shape) != (4 * c, c):
-        raise ValueError(f"msab_apply: C {c}, M {tuple(m.shape)}, w0 {tuple(blk.w0.shape)}, "
-                         f"w4 {tuple(blk.w4.shape)}")
-    _same_device(x, "msab_apply", m, blk.wv, blk.bproj, blk.pos0, blk.pos2, blk.ln_w, blk.ln_b,
-                 blk.w0, blk.dw, blk.w4)
+    shapes = tuple(tuple(t.shape) for t in (m, blk.wv, blk.bproj, blk.pos0, blk.pos2))
+    if shapes != ((n, c, c), (c, c), (c,), (3, 3, c), (3, 3, c)):
+        raise ValueError(f"msab_pos: C {c} takes M (N, C, C), wv (C, C), bproj (C,), pos0/pos2 (3, 3, C); "
+                         f"got {shapes}")
+    _same_device(x, "msab_pos", m, blk.wv, blk.bproj, blk.pos0, blk.pos2)
+
+
+def _check_apply(x, m, blk: MsabWeights) -> None:
+    _check_pos(x, m, blk)
+    c = x.shape[-1]
+    if tuple(blk.w0.shape) != (c, 4 * c) or tuple(blk.w4.shape) != (4 * c, c):
+        raise ValueError(f"msab_apply: C {c}, w0 {tuple(blk.w0.shape)}, w4 {tuple(blk.w4.shape)}")
+    _same_device(x, "msab_apply", blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
+
+
+def pos_smem_bytes(c: int, tile: tuple[int, int]) -> int:
+    """Shared memory of one block of the pos kernel: x over the tile with
+    its 2-pixel halo, a 32-channel chunk of V over the same and of T over
+    the 1-pixel halo, and the chunk's Wv and M columns, at the kernel's
+    padded pitches. Must equal ``Pos::SMEM_FLOATS`` in
+    ``csrc/fused_msab.cu``."""
+    th, tw = tile
+    cp = -(-c // 8) * 8
+    n2, n1 = (th + 4) * (tw + 4), (th + 2) * (tw + 2)
+    return 4 * (n2 * (cp + 4) + n2 * 40 + n1 * 32 + 2 * cp * 40)
+
+
+def kernel_smem_bytes(kind: str, c: int) -> int:
+    """Dynamic shared memory of one block of the ``"pos"`` or ``"stats"``
+    kernel at C = ``c`` as the library reports it, in bytes (builds the
+    library)."""
+    return _lib().av_msab_smem({"pos": 0, "stats": 1}[kind], c)
+
+
+def pos_tile_for(c: int, limit: int) -> tuple[int, int]:
+    """The pos kernel's output tile at C = ``c``; raises when two blocks of
+    it do not fit in ``limit`` bytes of one SM's shared memory
+    (``fused_mst.smem_limit``)."""
+    th, tw = POS_TILES[c]
+    need = 2 * pos_smem_bytes(c, (th, tw))
+    if need > limit:
+        raise ValueError(f"msab_pos: C = {c} needs {need} bytes of shared memory for two blocks of its {th}x{tw} "
+                         f"tile; an SM has {limit}")
+    return th, tw
+
+
+def msab_pos(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
+    """The first half of MSAB pass B on (N, H, W, C) float32 frames with the
+    per-frame (N, C, C) attention matrix ``m`` of ``attn_matrix``:
+    res1 = x m + bproj + dw3(gelu(dw3(x Wv, pos0)), pos2) + x; each
+    depthwise 3x3 zero-pads its own input. Counted as
+    ``LAUNCHES["msab_apply_kernel"]``."""
+    if x.device.type == "cpu":
+        return msab_pos_plain(x, m, blk)
+    from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
+
+    _check_pos(x, m, blk)
+    n, h, w, c = x.shape
+    # the kernel copies rows of C floats in pieces of 16 bytes at C = 124,
+    # 8 at C = 62 and 4 at C = 31, so their starts must be aligned as much
+    align = 16 if c % 4 == 0 else 8 if c % 2 == 0 else 4
+    if blk.wv.data_ptr() % align:
+        raise ValueError(f"msab_pos: wv must start on {align} bytes at C = {c}")
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    th, tw = pos_tile_for(c, fused_mst.smem_limit(index))
+    frames, mats = x.contiguous(), m.contiguous()
+    if frames.data_ptr() % align:
+        frames = frames.clone()
+    if mats.data_ptr() % align:  # a frame's slice of a batch's matrices
+        mats = mats.clone()
+    out = torch.empty_like(frames)
+    _build.launch(_lib(), "av_msab_pos", x.device, frames.data_ptr(), out.data_ptr(), mats.data_ptr(), _ptr(blk.wv),
+                  _ptr(blk.bproj), _ptr(blk.pos0), _ptr(blk.pos2), n, h, w, c, th, tw)
+    LAUNCHES["msab_apply_kernel"] += 1
+    return out
 
 
 def msab_apply(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
     """MSAB pass B on (N, H, W, C) float32 frames with the per-frame
     (N, C, C) attention matrix ``m`` of ``attn_matrix``: res1 = x m + bproj
     + dw3(gelu(dw3(x Wv))) + x, out = W4 gelu(dw3(gelu(W0 LN(res1)))) +
-    res1; every depthwise 3x3 zero-pads its own input."""
+    res1; every depthwise 3x3 zero-pads its own input. On the card:
+    ``msab_pos``, then ``fused_mst.ffn``, on the same stream."""
     if x.device.type == "cpu":
         return msab_apply_plain(x, m, blk)
+    from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
+
     _check_apply(x, m, blk)
-    n, h, w, c = x.shape
-    frames = x.contiguous()
-    out = torch.empty_like(frames)
-    _build.launch(_lib(), "av_msab_apply", x.device, frames.data_ptr(), out.data_ptr(), _ptr(m),
-                  _ptr(blk.wv), _ptr(blk.bproj), _ptr(blk.pos0), _ptr(blk.pos2), _ptr(blk.ln_w),
-                  _ptr(blk.ln_b), _ptr(blk.w0), _ptr(blk.dw), _ptr(blk.w4), n, h, w, c)
-    LAUNCHES["msab_apply_kernel"] += 1
-    return out
+    return fused_mst.ffn(msab_pos(x, m, blk), blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
 
 
 def _check_up(fea, skip, wup, bup, fuse) -> None:

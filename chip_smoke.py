@@ -10,10 +10,11 @@ raises on failure:
    convolutions (the cat's warp and zoom are full float32);
 2. build: compiles every ``csrc/*.cu`` kernel library (one nvcc per source,
    all at once) and prints ptxas' register and shared-memory report; for
-   the tensor-core kernels (``conv_kernel``, ``ffn_kernel``) it prints each
-   instance's registers, spills and dynamic shared memory and the count of
-   ``HMMA`` instructions in its SASS (``cuobjdump --dump-sass``), and fails
-   if one has none;
+   the tensor-core kernels (``conv_kernel``, ``attn_stats_kernel``,
+   ``msab_pos_kernel``, ``ffn_kernel``) it prints each instance's
+   registers, spills and dynamic shared memory and the count of ``HMMA``
+   instructions in its SASS (``cuobjdump --dump-sass``), and fails if one
+   has none;
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card at 1080x1920 and 721x1283: the three non-UV kernels on two
    random frames plus a frame of 0/1 values (so both branches of the
@@ -21,17 +22,18 @@ raises on failure:
    [0, 1] with 1 or 3 channels and ksize 3..37, <= 1e-5; the four MST++
    kernels at the three levels of a 1080x1920 frame and of 4 frames of
    272x480 (kestrel's and goldfish's 0.25-scale operating point), random
-   weights of scale 0.2: conv and up_fuse <= 1e-4, stats <= 1e-5 of max |G|,
-   apply <= 5e-4; MST-L's FFN kernel at the same levels and at 721x1283
+   weights of scale 0.2: conv, up_fuse and pass B's first half alone
+   (``msab_pos``) <= 1e-4, stats <= 1e-5 of max |G|, apply (``msab_pos``
+   then ``ffn``) <= 5e-4; MST-L's FFN kernel at the same levels and at 721x1283
    with C = 31, weights of scale 0.2, <= 1e-4; then each kernel's time
    (CUDA events), its plain version's time, its bound, and a library
    reference for the UV blur (reflect pad + two depthwise convolutions)
    and the MST++ convolution (``F.conv2d`` on channels-last tensors, with
-   the ratio of the kernel's time to it); ``conv`` and ``ffn`` also get a
-   second bound, for their 3xTF32 tensor-core products (the largest of
-   3 x product operations / 495 TFLOP/s, the other operations / 67 TFLOP/s
-   and bytes / 3.35 TB/s), which is the ``bound_ms`` of their summary
-   entries;
+   the ratio of the kernel's time to it); ``conv``, ``attn_stats``,
+   ``msab_pos``, ``msab_apply`` and ``ffn`` also get a second bound, for
+   their 3xTF32 tensor-core products (the largest of 3 x product operations
+   / 495 TFLOP/s, the other operations / 67 TFLOP/s and bytes / 3.35 TB/s),
+   which is the ``bound_ms`` of their summary entries;
 4. main path: ``get_animal(name).visualize(frame)`` and
    ``visualize_batch_device`` (4 frames already on the card) at 1080p, first
    for the 20 non-UV species, then for the ported UV species, with the
@@ -43,7 +45,8 @@ raises on failure:
    weights: one 1080p forward, kestrel and goldfish with ``attach_mst``
    through both entry points and honeybee with the provider on a 1080p
    frame, counters around the run (14 conv, 15 stats, 15 apply, 6 up_fuse
-   launches per forward), each against its plain version on the card
+   and 15 ``ffn`` launches per forward: pass B's second half is the FFN
+   kernel), each against its plain version on the card
    (forward < 5e-4, species >= 40 dB, baselines <= 1 LSB), ms and fps;
    then MST-L (the zoo's ``"mst"``) with weights made from a seed: one
    1080p forward, kestrel and mantis shrimp with ``attach_model(..., "mst")``
@@ -85,7 +88,11 @@ TOL_LSB = 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
-TC_KERNELS = ("conv_kernel", "ffn_kernel")  # products in 3xTF32 on the tensor cores
+# kernels whose products run in 3xTF32 on the tensor cores: the summary names
+# (msab_apply_kernel: msab_pos_kernel, then ffn_kernel) and the built
+# instances the build phase reports
+TC_KERNELS = ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel", "ffn_kernel")
+TC_INSTANCES = ("conv_kernel", "attn_stats_kernel", "msab_pos_kernel", "ffn_kernel")
 KERNEL_REPS = 100
 PLAIN_REPS = 5
 MAIN_REPS = 100
@@ -104,12 +111,14 @@ PROFILE_REPS = 5
 MST_POINTS = {"1080p": ((1080, 1920), 1), "272x480": ((272, 480), BATCH)}
 MST_KERNEL_REPS = 10
 MST_PLAIN_REPS = 2
-MST_TOL = {"conv_kernel": 1e-4, "up_fuse_kernel": 1e-4, "msab_apply_kernel": 5e-4}
+MST_TOL = {"conv_kernel": 1e-4, "up_fuse_kernel": 1e-4, "msab_pos_kernel": 1e-4, "msab_apply_kernel": 5e-4}
 MST_STATS_REL_TOL = 1e-5  # of max |G|
 MST_FORWARD_TOL = 5e-4
 MST_FORWARD_REPS = 10
 MST_SPECIES_REPS = 5
 MST_PER_FORWARD = {"conv_kernel": 14, "attn_stats_kernel": 15, "msab_apply_kernel": 15, "up_fuse_kernel": 6}
+# pass B's second half: one ffn_kernel launch per msab_apply
+MST_FFN_PER_FORWARD = {"ffn": 15}
 # the 1080p case of each MST++ kernel that the summary line reports
 MST_REPRESENTATIVE = {"conv_kernel": "31->31 k3", "attn_stats_kernel": "C=31", "msab_apply_kernel": "C=31",
                       "up_fuse_kernel": "62->31"}
@@ -223,7 +232,8 @@ def plain_forbidden_on_cuda():
     from animal_vision_tpu_torch.ops import fused_nonuv as F
 
     names = ((F, "iso_u8_plain"), (F, "streak_u8_plain"), (F, "pointwise_u8_plain"), (B, "blur_uv_plain"),
-             (M, "conv_plain"), (M, "attn_stats_plain"), (M, "msab_apply_plain"), (M, "up_fuse_plain"),
+             (M, "conv_plain"), (M, "attn_stats_plain"), (M, "msab_pos_plain"), (M, "msab_apply_plain"),
+             (M, "up_fuse_plain"),
              (T, "ffn_plain"))
     saved = {n: getattr(mod, n) for mod, n in names}
 
@@ -283,7 +293,7 @@ def build_phase() -> dict:
             f"its SASS")
         if row["hmma"] == 0:
             raise AssertionError(f"{inst}: no HMMA instruction in its SASS")
-    for kernel in TC_KERNELS:
+    for kernel in TC_INSTANCES:
         if not any(inst.startswith(kernel) for inst in tc):
             raise AssertionError(f"{kernel}: no instance found in the built libraries")
     return {"seconds": seconds, "tensor_core_kernels": tc}
@@ -292,7 +302,7 @@ def build_phase() -> dict:
 def instance_name(mangled: str) -> str:
     """``conv_kernel<4,2,62,124>`` from a mangled kernel name (the name
     itself when it is not one of the tensor-core kernels)."""
-    m = re.search(r"\d+((?:conv|ffn)_kernel)I((?:Li-?\d+E)+)E", mangled)
+    m = re.search(r"\d+((?:conv|ffn|attn_stats|msab_pos)_kernel)I((?:Li-?\d+E)+)E", mangled)
     if not m:
         return mangled
     return f"{m.group(1)}<{','.join(re.findall(r'Li(-?[0-9]+)E', m.group(2)))}>"
@@ -314,7 +324,7 @@ def tensor_core_report(reports: dict) -> dict:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 inst = instance_name(m.group(1))
-                current = inst if inst.startswith(TC_KERNELS) else None
+                current = inst if inst.startswith(TC_INSTANCES) else None
                 if current:
                     out[current] = dict(registers=None, spill_stores=None, spill_loads=None, smem_bytes=None, hmma=0)
             elif current and "spill stores" in line:
@@ -335,6 +345,10 @@ def tensor_core_report(reports: dict) -> dict:
         args = [int(v) for v in inst[inst.index("<") + 1:-1].split(",")]
         if inst.startswith("ffn_kernel"):
             row["smem_bytes"] = T.smem_bytes(args[0], (args[1], args[2]))
+        elif inst.startswith("attn_stats_kernel"):
+            row["smem_bytes"] = M.stats_smem_bytes(args[0])
+        elif inst.startswith("msab_pos_kernel"):
+            row["smem_bytes"] = M.pos_smem_bytes(args[0], M.POS_TILES[args[0]])
         else:
             row["smem_bytes"] = M.conv_smem_bytes(args[0], args[2], args[3])
     return out
@@ -575,6 +589,7 @@ def mst_kernel_cases(hw: tuple[int, int], n: int, device: torch.device, gen) -> 
             plain=lambda: M.attn_stats_plain(x, wq, wk, c // 31), library=None,
             bytes=4 * (px * c + 2 * c * c + n * (c * 31 + 2 * c)),
             ops=px * (2 * 2 * c * c + 2 * c * 31 + 2 * 2 * c),
+            tc_ops=(px * (4 * c * c + 2 * c * 31), px * 4 * c),
         ))
 
     def apply(lvl):
@@ -588,14 +603,26 @@ def mst_kernel_cases(hw: tuple[int, int], n: int, device: torch.device, gen) -> 
                             wt(3, 3, c), 1.0 + wt(c), wt(c), wt(c, 4 * c), wt(3, 3, 4 * c), wt(4 * c, c))
         px = n * hh * ww
         weights = sum(t.numel() for t in blk[1:]) - 3 * c * c - c // 31  # wq, wk, wproj, rescale are unused
+        pos_weights = c * c + c + 18 * c  # wv, bproj, pos0, pos2
+        # pass B's first half alone (msab_pos_kernel, counted as
+        # msab_apply_kernel): x Wv and x M; two depthwise 3x3s, one GELU and
+        # three adds per channel
+        cases.append(dict(
+            kernel="msab_pos_kernel", counter="msab_apply_kernel", case=f"C={c}", run=lambda: M.msab_pos(x, m, blk),
+            plain=lambda: M.msab_pos_plain(x, m, blk), library=None,
+            bytes=4 * (2 * px * c + n * c * c + pos_weights),
+            ops=px * (2 * c * c * 2 + 2 * 9 * 2 * c + c + 3 * c),
+            tc_ops=(px * 4 * c * c, px * (2 * 9 * 2 * c + c + 3 * c)),
+        ))
+        # x Wv, x M, W0, W4 products; the three depthwise 3x3s; GELU (1
+        # each, 3 hidden-size passes of them), LayerNorm (about 8 per
+        # channel) and the residual adds
+        ops = px * (2 * c * c * 2 + 2 * 4 * c * c * 2 + 2 * 9 * (2 * c + 4 * c) + (c + 2 * 4 * c) + 8 * c + 4 * c)
         cases.append(dict(
             kernel="msab_apply_kernel", case=f"C={c}", run=lambda: M.msab_apply(x, m, blk),
             plain=lambda: M.msab_apply_plain(x, m, blk), library=None,
             bytes=4 * (2 * px * c + n * c * c + weights),
-            # x Wv, x M, W0, W4 products; the three depthwise 3x3s; GELU (1
-            # each, 3 hidden-size passes of them), LayerNorm (about 8 per
-            # channel) and the residual adds
-            ops=px * (2 * c * c * 2 + 2 * 4 * c * c * 2 + 2 * 9 * (2 * c + 4 * c) + (c + 2 * 4 * c) + 8 * c + 4 * c),
+            ops=ops, tc_ops=(px * 20 * c * c, ops - px * 20 * c * c),
         ))
 
     def up_fuse(lvl):
@@ -663,9 +690,10 @@ def mst_kernels_phase(device: torch.device, points=MST_POINTS, reps=MST_KERNEL_R
             if not err <= tol:
                 raise AssertionError(f"{kernel} {case['case']} at {point}: error {err} from its plain version "
                                      f"(tolerance {tol})")
-            before = M.LAUNCHES[kernel]
+            counter = case.get("counter", kernel)
+            before = M.LAUNCHES[counter]
             ms = time_ms(case["run"], reps, device)
-            if device.type == "cuda" and M.LAUNCHES[kernel] == before:
+            if device.type == "cuda" and M.LAUNCHES[counter] == before:
                 raise AssertionError(f"{kernel} did not launch")
             plain_ms = time_ms(case["plain"], plain_reps, device, warmup=1)
             library_ms = library_err = None
@@ -682,9 +710,12 @@ def mst_kernels_phase(device: torch.device, points=MST_POINTS, reps=MST_KERNEL_R
             lib = "" if library_ms is None else f", library {library_ms:.4f} ms (err {library_err:.2g})"
             tc = ""
             if "tc_ops" in case:
-                row.update(tc_bound(case["bytes"], *case["tc_ops"]), library_ratio=ms / library_ms)
+                row.update(tc_bound(case["bytes"], *case["tc_ops"]))
                 tc = (f", 3xTF32 bound {row['bound_tc_ms']:.4f} ms by {row['bound_tc_by']}: "
-                      f"{row['bound_tc_ms'] / ms:.1%} of it; {ms / library_ms:.3f}x the library's time")
+                      f"{row['bound_tc_ms'] / ms:.1%} of it")
+                if library_ms is not None:
+                    row["library_ratio"] = ms / library_ms
+                    tc += f"; {ms / library_ms:.3f}x the library's time"
             rows.append(row)
             log(f"[kernel] {kernel:<17} {case['case']:<22} {point:<7} x{n}: err {err:.3g} (abs {abs_err:.3g}), "
                 f"{ms:.4f} ms (plain {plain_ms:.3f} ms{lib}, f32 bound {row['bound_ms']:.4f} ms by "
@@ -932,6 +963,7 @@ def mst_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MST_
                "honeybee": HoneyBee(device, hsi_provider=make_mst_hsi_provider(model))}
     sync(device)
 
+    expected = {**MST_PER_FORWARD, **MST_FFN_PER_FORWARD}
     items = {"forward": lambda: model(x)}
     for name in ("kestrel", "goldfish"):
         items[f"{name} visualize"] = lambda a=animals[name]: a.visualize(host[0])
@@ -943,14 +975,14 @@ def mst_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MST_
         for label, fn in items.items():
             before = counters()
             outputs[label] = fn()
-            per_item[label] = {k: v - before[k] for k, v in counters().items() if k in MST_PER_FORWARD}
+            per_item[label] = {k: v - before[k] for k, v in counters().items() if k in expected}
         sync(device)
         launches = counters()
     log(f"[main] launches over the MST++ main-path run ({len(items)} forwards): "
-        f"{ {k: launches[k] for k in MST_PER_FORWARD} }")
+        f"{ {k: launches[k] for k in expected} }")
     for label, moved in per_item.items():
-        if device.type == "cuda" and moved != MST_PER_FORWARD:
-            raise AssertionError(f"{label}: expected {MST_PER_FORWARD} MST++ launches per forward, counted {moved}")
+        if device.type == "cuda" and moved != expected:
+            raise AssertionError(f"{label}: expected {expected} MST++ launches per forward, counted {moved}")
 
     with torch.no_grad():
         got = outputs["forward"]
@@ -1021,7 +1053,7 @@ def mst_l_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MS
     items = {"forward": (lambda: model(x), {"ffn": MSTL_PER_FORWARD})}
     for name, animal in animals.items():
         mst_pp = name.endswith("mst++")
-        one = {**MST_PER_FORWARD, "ffn": 0} if mst_pp else {"ffn": MSTL_PER_FORWARD}
+        one = {**MST_PER_FORWARD, **MST_FFN_PER_FORWARD} if mst_pp else {"ffn": MSTL_PER_FORWARD}
         many = one if mst_pp else {"ffn": MSTL_PER_FORWARD * batch}  # MST-L: one forward per frame
         items[f"{name} visualize"] = (lambda a=animal: a.visualize(host[0]), one)
         items[f"{name} batch{batch}"] = (lambda a=animal: a.visualize_batch_device(frames), many)
@@ -1197,9 +1229,11 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
         if kernel == "attn_stats_kernel":
             extra = {"max_rel_err": max(r["err"] for r in rows)}
         if kernel in TC_KERNELS:
+            extra = {**extra, "bound_f32_simt_ms": rep["bound_ms"]}
+        if kernel == "conv_kernel":
             worst = max(rows, key=lambda r: r["library_ratio"])
-            extra = {"bound_f32_simt_ms": rep["bound_ms"], "library_ratio_worst": worst["library_ratio"],
-                     "library_ratio_worst_case": f"{worst['case']} at {worst['point']}"}
+            extra.update(library_ratio_worst=worst["library_ratio"],
+                         library_ratio_worst_case=f"{worst['case']} at {worst['point']}")
         out.append(dict(
             name=kernel, route="cuda", source=SOURCES[kernel], replaces=REPLACES[kernel],
             launches=launches[kernel], max_abs_err=max(r["max_abs_err"] for r in rows),

@@ -46,7 +46,7 @@ def no_plain_on_cuda(monkeypatch):
     originals = {}
     for mod, name in ((F, "iso_u8_plain"), (F, "streak_u8_plain"), (F, "pointwise_u8_plain"),
                       (B, "blur_uv_plain"), (M, "conv_plain"), (M, "attn_stats_plain"),
-                      (M, "msab_apply_plain"), (M, "up_fuse_plain"), (T, "ffn_plain")):
+                      (M, "msab_pos_plain"), (M, "msab_apply_plain"), (M, "up_fuse_plain"), (T, "ffn_plain")):
         fn = getattr(mod, name)
         originals[name] = fn
 
@@ -292,16 +292,78 @@ def test_attn_stats_kernel(cuda, no_plain_on_cuda, shape, c):
         assert torch.equal(a, r)
 
 
-@pytest.mark.parametrize("shape", MST_SHAPES)
 @pytest.mark.parametrize("c", M.MSAB_CHANNELS)
-def test_msab_apply_kernel(cuda, no_plain_on_cuda, shape, c):
+def test_attn_stats_kernel_frames_independent(cuda, no_plain_on_cuda, c):
+    """Each frame of a batch gives the same bits as the frame alone (the
+    block count is a function of the pixel count only), and two runs are
+    bit-equal."""
+    rng = np.random.default_rng(c + 4)
+    x = _randn(rng, 3, 17, 33, c, scale=0.5).to(cuda)
+    wq, wk = _randn(rng, c, c, scale=0.2).to(cuda), _randn(rng, c, c, scale=0.2).to(cuda)
+    got = M.attn_stats(x, wq, wk, c // 31)
+    for a, b in zip(got, M.attn_stats(x, wq, wk, c // 31)):
+        assert torch.equal(a, b)
+    for i in range(x.shape[0]):
+        for a, b in zip(got, M.attn_stats(x[i:i + 1].contiguous(), wq, wk, c // 31)):
+            assert torch.equal(a[i:i + 1], b)
+
+
+def _msab_operands(shape, c):
     rng = np.random.default_rng(c + 1)
     x = _randn(rng, *shape, c, scale=0.5)
     blk = _msab_weights(rng, c)
     m = _randn(rng, shape[0], c, c, scale=0.2)
+    return x, m, blk
+
+
+@pytest.mark.parametrize("shape", MST_SHAPES + [(1, 1, 1), (1, 1, 7), (1, 5, 3)])
+@pytest.mark.parametrize("c", M.MSAB_CHANNELS)
+def test_msab_pos_kernel(cuda, no_plain_on_cuda, shape, c):
+    """The first half of pass B within 1e-4 of its plain version, from 1x1
+    frames and frames narrower than one tile up."""
+    x, m, blk = _msab_operands(shape, c)
+    got = _counted("msab_apply_kernel", M.msab_pos, x.to(cuda), m.to(cuda), _to(blk, cuda))
+    want = no_plain_on_cuda["msab_pos_plain"](x, m, blk)
+    assert got.shape == want.shape
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("shape", MST_SHAPES)
+@pytest.mark.parametrize("c", M.MSAB_CHANNELS)
+def test_msab_apply_kernel(cuda, no_plain_on_cuda, shape, c):
+    """Pass B: the pos kernel, then the FFN kernel."""
+    x, m, blk = _msab_operands(shape, c)
+    before = T.LAUNCHES["ffn"]
     got = _counted("msab_apply_kernel", M.msab_apply, x.to(cuda), m.to(cuda), _to(blk, cuda))
+    assert T.LAUNCHES["ffn"] == before + 1
     want = no_plain_on_cuda["msab_apply_plain"](x, m, blk)
     assert (got.cpu() - want).abs().max().item() <= 5e-4
+
+
+@pytest.mark.parametrize("c", M.MSAB_CHANNELS)
+def test_msab_apply_kernel_frames_independent(cuda, no_plain_on_cuda, c):
+    """Each frame of a batch equals the same frame alone, bit for bit, and
+    two runs are bit-equal."""
+    x, m, blk = _msab_operands((3, 17, 33), c)
+    x, m, blk = x.to(cuda), m.to(cuda), _to(blk, cuda)
+    got = M.msab_apply(x, m, blk)
+    assert torch.equal(got, M.msab_apply(x, m, blk))
+    for i in range(x.shape[0]):
+        assert torch.equal(got[i:i + 1], M.msab_apply(x[i:i + 1].contiguous(), m[i:i + 1].contiguous(), blk))
+
+
+def test_msab_pos_tile_raises_above_shared_memory(cuda):
+    """Two blocks of the 8x16 tile fit an SM of this card at C = 31, of 8x8
+    at C = 62 and of 4x8 at C = 124, and the library's shared memory per
+    block is the wrappers' count; where two do not fit, the wrapper raises
+    and names C and the tile."""
+    limit = T.smem_limit(torch.cuda.current_device())
+    assert [M.pos_tile_for(c, limit) for c in M.MSAB_CHANNELS] == [(8, 16), (8, 8), (4, 8)]
+    for c in M.MSAB_CHANNELS:
+        assert M.kernel_smem_bytes("pos", c) == M.pos_smem_bytes(c, M.POS_TILES[c])
+        assert M.kernel_smem_bytes("stats", c) == M.stats_smem_bytes(c)
+    with pytest.raises(ValueError, match="C = 62 .* 8x8 tile"):
+        M.pos_tile_for(62, 64 * 1024)
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 4), (2, 7, 11), (1, 17, 30)])
@@ -322,16 +384,18 @@ def test_up_fuse_kernel(cuda, no_plain_on_cuda, shape, c):
 def test_mst_on_card_vs_cpu(cuda, no_plain_on_cuda):
     """The shipped model at 64x96 (and 37x53, padded to 40x56): kernels on
     the card against the plain versions on the CPU, < 5e-4, with the
-    per-forward launch counts."""
+    per-forward launch counts (pass B's second half is the FFN kernel)."""
     gpu, cpu = load_shipped(cuda), load_shipped("cpu")
     for shape in [(1, 64, 96, 3), (2, 37, 53, 3)]:
         x = torch.from_numpy(np.random.default_rng(7).random(shape, dtype=np.float32))
         M.reset_launches()
+        T.reset_launches()
         with torch.no_grad():
             got = gpu(x.to(cuda))
             torch.cuda.synchronize()
             assert M.LAUNCHES == {"conv_kernel": 14, "attn_stats_kernel": 15, "msab_apply_kernel": 15,
                                   "up_fuse_kernel": 6}
+            assert T.LAUNCHES == {"ffn": 15}
             want = cpu(x)
         assert got.shape == want.shape == (*shape[:3], 31)
         assert (got.cpu() - want).abs().max().item() < 5e-4

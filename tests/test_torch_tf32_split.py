@@ -1,7 +1,8 @@
 """The arithmetic of the port's tensor-core kernels, emulated in numpy.
 
-``conv_kernel`` (``csrc/fused_msab.cu``) and ``ffn_kernel``
-(``csrc/fused_mst.cu``) run their float32 products as 3xTF32 on
+``conv_kernel``, ``attn_stats_kernel`` and ``msab_pos_kernel``
+(``csrc/fused_msab.cu``) and ``ffn_kernel`` (``csrc/fused_mst.cu``) run
+their float32 products as 3xTF32 on
 ``mma.sync.m16n8k8`` (``csrc/mma_tf32.cuh``): each operand is split as
 hi = rna(x), lo = rna(x - hi), where rna rounds to TF32 (10 mantissa bits)
 to nearest with ties away from zero; each 8-deep step accumulates lo*hi',
@@ -14,12 +15,14 @@ partial sum and rounded once to float32. At the convolution's inner
 dimensions (27, 279, 496, 992) and the FFN's (C and 4C for C = 31, 62,
 124), with the card tests' data scales, 3xTF32 stays within their 1e-4 of
 a float64 product, and one TF32 pass does not at 992: the reason for the
-three passes."""
+three passes. The stats kernel's Gram (31 x 31 per head, the pixels as
+the inner dimension) is emulated with its tiles, blocks and fixed-order
+reduction at 2^16 + 29 pixels, within 1e-5 of max |G|."""
 
 import numpy as np
 import pytest
 
-from animal_vision_tpu_torch.ops import fused_mst
+from animal_vision_tpu_torch.ops import fused_msab, fused_mst
 
 TOL = 1e-4  # the card tests' bar for conv and ffn against their plain versions
 ROWS, COLS = 64, 32  # output pixels and channels per emulated product
@@ -139,3 +142,70 @@ def test_ffn_up_product_3xtf32_within_the_card_bar(c):
 def test_ffn_down_product_3xtf32_within_the_card_bar(c):
     _, _, hid, w4 = _ffn_operands(c)
     assert _error(hid, w4, fused_mst.hidden_chunk(c)) <= TOL  # K = 4C in hidden chunks
+
+
+# --- MSAB pass A (attn_stats_kernel) and the first half of pass B (msab_pos_kernel) ---
+
+
+def stats_gram(k: np.ndarray, q: np.ndarray, tile: int, nblk: int) -> np.ndarray:
+    """G = k^T q (one head, (npix, 31) each) as ``attn_stats_kernel`` and
+    ``stats_reduce_kernel`` sum it: block b takes pixel tiles b, b + nblk,
+    ...; per tile each 32-pixel slice is summed apart (8-deep 3xTF32 steps)
+    into the block's float32 sum; then warp w of the reduction adds blocks
+    w, w + 8, ... in order, and the eight warp sums are added in order."""
+    npix = k.shape[0]
+    ntiles = -(-npix // tile)
+    pad = ((0, ntiles * tile - npix), (0, 32 - k.shape[1]))
+    kt = np.pad(k, pad).reshape(ntiles, tile, 32)
+    qt = np.pad(q, pad).reshape(ntiles, tile, 32)
+    acc = np.zeros((nblk, 32, 32), np.float32)
+    for first in range(0, ntiles, nblk):
+        idx = np.arange(first, min(first + nblk, ntiles))
+        for p0 in range(0, tile, 32):
+            part = np.zeros((len(idx), 32, 32), np.float32)
+            for kk in range(p0, p0 + 32, 8):
+                ahi, alo = split(kt[idx, kk:kk + 8].transpose(0, 2, 1))
+                bhi, blo = split(qt[idx, kk:kk + 8])
+                part = mma(part, alo, bhi)
+                part = mma(part, ahi, blo)
+                part = mma(part, ahi, bhi)
+            acc[idx - first] = acc[idx - first] + part
+    sums = [np.zeros((32, 32), np.float32) for _ in range(8)]
+    for b in range(nblk):
+        sums[b % 8] = sums[b % 8] + acc[b]
+    out = sums[0]
+    for s in sums[1:]:
+        out = out + s
+    return out[:31, :31]
+
+
+@pytest.mark.parametrize("c", fused_msab.MSAB_CHANNELS)
+def test_attn_stats_gram_3xtf32_within_the_card_bar(c):
+    """A frame of 2^16 + 29 pixels (every block of the kernel's 1024 takes
+    a tile or two), the last head's q and k in 3xTF32 from x, then the
+    Gram's 3xTF32 sum: within the card tests' 1e-5 of max |G| of the
+    float64 product."""
+    rng = np.random.default_rng(100 + c)
+    npix = 2 ** 16 + 29
+    x = (rng.standard_normal((npix, c)) * 0.5).astype(np.float32)
+    cols = slice(c - 31, c)
+    wq = (rng.standard_normal((c, c)) * 0.2).astype(np.float32)[:, cols]
+    wk = (rng.standard_normal((c, c)) * 0.2).astype(np.float32)[:, cols]
+    q, k = kernel_product(x, wq, 32), kernel_product(x, wk, 32)
+    x64 = x.astype(np.float64)
+    want = (x64 @ wk.astype(np.float64)).T @ (x64 @ wq.astype(np.float64))
+    nblk = fused_msab.stats_blocks(npix)
+    assert nblk == 1024
+    got = stats_gram(k, q, fused_msab.stats_tile(c), nblk)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("c", fused_msab.MSAB_CHANNELS)
+@pytest.mark.parametrize("which", ["wv", "m"])
+def test_pos_products_3xtf32_within_the_card_bar(c, which):
+    """x Wv over the tile's halo and x M over the tile: K = C in 32-deep
+    slices, inputs of scale 0.5 and weights of scale 0.2, within 1e-4."""
+    rng = np.random.default_rng(c + (0 if which == "wv" else 1))
+    x = (rng.standard_normal((ROWS, c)) * 0.5).astype(np.float32)
+    w = (rng.standard_normal((c, 32)) * 0.2).astype(np.float32)
+    assert _error(x, w, 32) <= TOL
