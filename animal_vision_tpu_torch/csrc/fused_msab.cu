@@ -16,14 +16,14 @@
 // frame. The TPU pixel packing (H, W/P, P*C), its kron and neighbour-pack
 // matrices, the GELU polynomial, bf16 products, lagged-ref halos and the
 // sharding bounds are not carried over: every product is float32 (3xTF32
-// on the tensor cores, or SIMT float32 in up_fuse_kernel) and GELU is the
-// exact 0.5 x (1 + erf(x / sqrt 2)) with erff.
+// on the tensor cores) and GELU is the exact 0.5 x (1 + erf(x / sqrt 2))
+// with erff.
 //
 // Bound on this card, for float32 outside the tensor cores: operations.
 // The matrix products dominate (an MSAB block at C channels does about
 // 12 C^2 multiply-adds per pixel against 8 C bytes of traffic: 90 flops per
-// byte at C = 31, above the card's 20). So conv, attn_stats and msab_pos run
-// their products on the tensor cores in 3xTF32 (mma_tf32.cuh).
+// byte at C = 31, above the card's 20). So every kernel here runs its
+// products on the tensor cores in 3xTF32 (mma_tf32.cuh).
 //
 // conv_kernel<K, S, Cin, Cout> is an implicit GEMM on the tensor cores.
 // Bound: the 3x3 and 4x4 convolutions do 2 K^2 Cin multiply-adds per
@@ -96,16 +96,30 @@
 // - ((A + bproj) + dw3(T)) + x into a (pixel, 32) tile, stored by
 //   consecutive threads at consecutive addresses of each pixel's run.
 //
-// up_fuse_kernel runs its products as "warp GEMMs" (warp_gemm below): an
-// input tile sits in shared memory planar, [channel][pixel], the 32 lanes
-// of a warp take 32 pixels each step and the warp takes groups of 4
-// consecutive outputs, so a lane reads conflict-free shared memory and
-// every lane of a warp reads the same weight (one broadcast load, from L1).
-// Its weights stay in device memory (L1/L2-resident). A 4x8 input tile's
-// 2x2 transposed convolution (with its bias per (dy, dx, out)) is written
-// depth-to-space into the first half of an [up | skip] tile in shared
-// memory, the skip tile into the second half, and one more warp GEMM
-// applies the 1x1 fuse.
+// up_fuse_kernel<C> (the decoder level) as one 3xTF32 GEMM per output
+// parity. The transposed convolution is folded into the fuse once per
+// model (ops/fused_msab.py:up_fuse_weights, as the JAX packed_up_fuse
+// folds it): with W'[dy,dx] = Wup[dy,dx] Wf_up and b'[dy,dx] = bup[dy,dx]
+// Wf_up, out(2y+dy, 2x+dx) = [fea(y,x) | skip(2y+dy,2x+dx)] [W'[dy,dx] ;
+// Wf_skip] + b'[dy,dx]: an inner dimension of C + C/2 (93 or 186, padded
+// to 96 or 192), C/2 outputs (padded to 32 or 64), 25% fewer operations
+// than the transposed convolution and the fuse apart, and no [up | skip]
+// intermediate. Bound: bytes at both levels in 3xTF32 (0.19 ms at 62 -> 31
+// and 0.10 ms at 124 -> 62 for a 1080p frame). Design, one block of 8
+// warps per TH x TW input tile (UpTile):
+// - the fea tile (pixel-major) and the skip rows of the 2TH x 2TW output
+//   tile, each row as it lies in memory, are staged once by cp.async with
+//   zero fill;
+// - the composed weights, packed by the wrapper in the order they are
+//   used, stream through a ring of three slabs (16-byte copies): a slice of
+//   W' for all four parities (32 rows at C = 62, 16 at 124), then 32-row
+//   slices of Wf_skip; each slice is summed apart, in 3xTF32 mma.sync;
+// - each warp owns one parity and a 32 x 32 tile of (pixels, outputs), so
+//   each split A fragment feeds four products and each B fragment two;
+// - the results (plus b') overwrite the skip values of their own pixels,
+//   so the staged rows become the output tile, and each row, one
+//   contiguous NHWC run, is stored by consecutive threads at consecutive
+//   addresses.
 //
 // C interface (loaded with ctypes): each entry point takes raw device
 // pointers and the stream, launches on that stream without synchronising,
@@ -114,6 +128,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "mma_tf32.cuh"
 
@@ -121,58 +137,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGroup = 4;     // consecutive outputs a warp takes per step
 constexpr int kHeadDim = 31;  // MST++ attention heads are 31 channels
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float gelu(float x) { return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f)); }
-
-// out(o, p) = sum_k in[k * in_pitch + src(p)] * w[k * ldw + o] for o < no,
-// p < np. Lane l takes pixels l, l + 32, ... (NS of them); warp w of the
-// block's NW takes the output groups w, w + NW, ... of kGroup outputs.
-// `epi(o, p, value)` receives each result once.
-template <int NS, int NW, typename Src, typename Epi>
-__device__ __forceinline__ void warp_gemm(const float* in, int in_pitch, int nk, const float* __restrict__ w,
-                                          int ldw, int no, int np, Src src, Epi epi) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int off[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    const int p = lane + 32 * s;
-    off[s] = p < np ? src(p) : 0;
-  }
-  for (int o0 = warp * kGroup; o0 < no; o0 += NW * kGroup) {
-    const int nq = min(kGroup, no - o0);
-    float acc[NS][kGroup];
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
-#pragma unroll
-      for (int q = 0; q < kGroup; ++q) acc[s][q] = 0.f;
-    const float* wk = w + o0;
-    const float* row = in;
-    for (int k = 0; k < nk; ++k, wk += ldw, row += in_pitch) {
-      float b[kGroup];
-#pragma unroll
-      for (int q = 0; q < kGroup; ++q) b[q] = q < nq ? __ldg(wk + q) : 0.f;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const float a = row[off[s]];
-#pragma unroll
-        for (int q = 0; q < kGroup; ++q) acc[s][q] = fmaf(a, b[q], acc[s][q]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int p = lane + 32 * s;
-      if (p >= np) continue;
-#pragma unroll
-      for (int q = 0; q < kGroup; ++q)
-        if (q < nq) epi(o0 + q, p, acc[s][q]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // conv_kernel: out = conv(x, w) (+ residual), zero pad 1, no bias.
@@ -813,66 +782,188 @@ int launch_pos(const float* x, float* out, const float* m, const float* wv, cons
 }
 
 // ---------------------------------------------------------------------------
-// up_fuse_kernel: a 4x8 tile of the (h, w, C) input -> an 8x16 tile of the
-// (2h, 2w, C/2) output.
+// up_fuse_kernel: out(2y+dy, 2x+dx) = [fea(y,x) | skip(2y+dy,2x+dx)]
+// [W'[dy,dx] ; Wf_skip] + b'[dy,dx] over one TH x TW tile of fea, i.e. a
+// 2TH x 2TW tile of the output.
 // ---------------------------------------------------------------------------
 
-constexpr int kUpH = 4, kUpW = 8, kUpIn = kUpH * kUpW, kUpOutW = 2 * kUpW, kUpOut = 4 * kUpIn;
+// The input tile built for each C (UP_TILES in ops/fused_msab.py) and the
+// depth of its fea slices (UP_FEA_SLICE): the largest tile of which two
+// blocks fit an H100 SM (108 / 102 KB; 8x16 at C = 62 and 4x16 at C = 124
+// take more than the 115,712 bytes two blocks may take).
+template <int C>
+struct UpTile;
+template <>
+struct UpTile<62> {
+  static constexpr int kH = 8, kW = 8, kFeaSlice = 32;
+};
+template <>
+struct UpTile<124> {
+  static constexpr int kH = 4, kW = 8, kFeaSlice = 16;
+};
 
 template <int C>
-__host__ __device__ constexpr size_t up_smem_floats() { return static_cast<size_t>(C) * (kUpIn + kUpOut); }
+struct Up {
+  static constexpr int TH = UpTile<C>::kH, TW = UpTile<C>::kW, M = TH * TW;  // input pixels
+  static constexpr int HF = C / 2;
+  static constexpr int CF = cdiv(C, 32) * 32, HP = cdiv(HF, 32) * 32;  // fea and skip depths, padded
+  static constexpr int NP = cdiv(HF, 32) * 32;                        // output columns, padded
+  static constexpr int KF = UpTile<C>::kFeaSlice, KS = 32;            // slice depths: fea (4 parities), skip
+  static constexpr int NF = CF / KF, NSTEP = NF + HP / KS, NSTAGE = 3;
+  // pitches (floats): fea rows 4 (mod 32), weight rows 8 (mod 32); a skip
+  // row is the 2TW pixels of one output row, contiguous, plus a zero pad
+  static constexpr int PF = CF + 4, PB = NP + 8, RP = 2 * TW * HF + 4;
+  static constexpr int MT = M / 32, NT = NP / 32;  // warp tiles of 32 x 32 per parity
+  static constexpr int FEA = M * PF, RAW = 2 * TH * RP;
+  static constexpr int SLAB = (4 * KF > KS ? 4 * KF : KS) * PB;
+  static constexpr int SMEM_FLOATS = FEA + RAW + NSTAGE * SLAB;
+  static_assert(MT * NT * 4 == kWarps && CF % KF == 0 && HP % KS == 0, "one 32 x 32 tile per warp and parity");
+  static_assert(RP % tc::copy_vec(HF) == 0 && FEA % 4 == 0, "aligned skip rows");
+};
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 up_fuse_kernel(const float* __restrict__ fea, const float* __restrict__ skip, float* __restrict__ out,
-               const float* __restrict__ wup, const float* __restrict__ bup, const float* __restrict__ fuse,
-               int h, int w) {
-  constexpr int HF = C / 2;
-  extern __shared__ float smem[];
-  float* s_f = smem;             // (C, kUpIn): the input tile
-  float* s_x = s_f + C * kUpIn;  // (C, kUpOut): [up | skip] over the output tile
+               const float* __restrict__ wpk, const float* __restrict__ bc, int h, int w) {
+  using U = Up<C>;
+  constexpr int TH = U::TH, TW = U::TW, HF = U::HF, CF = U::CF, NP = U::NP;
+  constexpr int KF = U::KF, KS = U::KS, NF = U::NF, PF = U::PF, PB = U::PB, RP = U::RP;
+  extern __shared__ __align__(16) float up_smem[];
+  float* s_f = up_smem;          // (M, PF): fea over the tile, pixel-major
+  float* s_r = s_f + U::FEA;     // (2TH, RP): skip over the output tile; later the output
+  float* s_b = s_r + U::RAW;     // ring of NSTAGE weight slabs
   const int n = blockIdx.z;
-  const int x0 = blockIdx.x * kUpW, y0 = blockIdx.y * kUpH;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   const int h2 = 2 * h, w2 = 2 * w;
-  const float* fsrc = fea + static_cast<size_t>(n) * h * w * C;
-  const float* ssrc = skip + static_cast<size_t>(n) * h2 * w2 * HF;
-  for (int i = threadIdx.x; i < kUpIn * C; i += kThreads) {
-    const int p = i / C, c = i - p * C;
-    const int gy = y0 + p / kUpW, gx = x0 + p % kUpW;
-    s_f[c * kUpIn + p] = (gy < h && gx < w) ? fsrc[(static_cast<size_t>(gy) * w + gx) * C + c] : 0.f;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // warp -> parity d = 2 dy + dx and a 32 x 32 tile of (pixels, outputs)
+  const int d = warp & 3, dy = d >> 1, dx = d & 1, sub = warp >> 2;
+  const int m0 = (sub % U::MT) * 32, n0 = (sub / U::MT) * 32;
+  const int run = min(2 * TW, w2 - 2 * x0) * HF;  // floats of an output row inside the frame
+
+  // fea (zero outside the frame and beyond C) and the skip rows of the
+  // output tile as they lie in memory (zero outside the frame).
+  {
+    const float* fsrc = fea + static_cast<size_t>(n) * h * w * C;
+    constexpr int V = tc::copy_vec(C), UPP = CF / V;
+    for (int i = tid; i < U::M * UPP; i += kThreads) {
+      const int p = i / UPP, c = (i % UPP) * V;
+      const int gy = y0 + p / TW, gx = x0 + p % TW;
+      const bool ok = c < C && gy < h && gx < w;
+      tc::cp_async<4 * V>(s_f + p * PF + c, ok ? fsrc + (static_cast<size_t>(gy) * w + gx) * C + c : fsrc, ok);
+    }
+    const float* ssrc = skip + (static_cast<size_t>(n) * h2 * w2 + 2 * x0) * HF;
+    constexpr int VS = tc::copy_vec(HF), UPR = RP / VS;
+    for (int i = tid; i < 2 * TH * UPR; i += kThreads) {
+      const int ly = i / UPR, e = (i % UPR) * VS;
+      const int gy = 2 * y0 + ly;
+      const bool ok = gy < h2 && e < run;
+      tc::cp_async<4 * VS>(s_r + ly * RP + e, ok ? ssrc + static_cast<size_t>(gy) * w2 * HF + e : ssrc, ok);
+    }
   }
-  for (int i = threadIdx.x; i < kUpOut * HF; i += kThreads) {
-    const int p = i / HF, c = i - p * HF;
-    const int gy = 2 * y0 + p / kUpOutW, gx = 2 * x0 + p % kUpOutW;
-    s_x[(HF + c) * kUpOut + p] = (gy < h2 && gx < w2) ? ssrc[(static_cast<size_t>(gy) * w2 + gx) * HF + c] : 0.f;
+  // Slab s: for s < NF, rows [KF s, KF s + KF) of W'[d] for the four
+  // parities; then 32-row slices of Wf_skip. The wrapper packs them in this
+  // order, zero-padded to CF / HP rows and NP columns (16-byte copies).
+  auto load_b = [&](int s, float* dst) {
+    const int rows = s < NF ? 4 * KF : KS;
+    const float* src = wpk + static_cast<size_t>(s < NF ? s * 4 * KF : 4 * CF + (s - NF) * KS) * NP;
+    for (int i = tid; i < rows * (NP / 4); i += kThreads) {
+      const int r = i / (NP / 4), col = (i % (NP / 4)) * 4;
+      tc::cp_async<16>(dst + r * PB + col, src + r * NP + col, true);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < U::NSTAGE - 1; ++s) {
+    load_b(s, s_b + s * U::SLAB);
+    tc::cp_async_commit();
+  }
+
+  // This lane's A rows: m-tile i, row g (h = 0) or g + 8 (h = 1), in the
+  // fea tile and in its parity's skip pixels.
+  const float* af[2][2];
+  float* as[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = m0 + 16 * i + 8 * hf + g, iy = r / TW, ix = r % TW;
+      af[i][hf] = s_f + r * PF;
+      as[i][hf] = s_r + (2 * iy + dy) * RP + (2 * ix + dx) * HF;
+    }
+
+  float acc[2][4][4] = {};
+  for (int s = 0; s < U::NSTEP; ++s) {
+    tc::cp_async_wait<U::NSTAGE - 2>();
+    __syncthreads();  // slab s (and the tiles) landed; every warp is done with step s - 1
+    if (s + U::NSTAGE - 1 < U::NSTEP) load_b(s + U::NSTAGE - 1, s_b + ((s + U::NSTAGE - 1) % U::NSTAGE) * U::SLAB);
+    tc::cp_async_commit();
+    const float* sb = s_b + (s % U::NSTAGE) * U::SLAB + n0;
+    float part[2][4][4] = {};
+    // one slice: A columns [k0, k0 + depth) of the rows in `a`, B rows from `b`
+    auto slice = [&](const auto& a, int k0, const float* b, auto depth) {
+#pragma unroll
+      for (int kk = 0; kk < decltype(depth)::value; kk += 8) {
+        tc::FragA fa[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) fa[i] = tc::load_a(a[i][0] + k0 + kk, a[i][1] + k0 + kk, t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const tc::FragB fb = tc::load_b(b + kk * PB + 8 * j, PB, g, t);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) tc::mma3(part[i][j], fa[i], fb);
+        }
+      }
+    };
+    if (s < NF) {
+      slice(af, s * KF, sb + d * KF * PB, std::integral_constant<int, KF>());
+    } else {
+      slice(as, (s - NF) * KS, sb, std::integral_constant<int, KS>());
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
+  }
+
+  // Once every warp is done reading the skip pixels, each pixel's result
+  // plus b'[d] takes the place of its skip values (its first C/2 floats).
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    const float b0 = col < HF ? __ldg(bc + d * HF + col) : 0.f;
+    const float b1 = col + 1 < HF ? __ldg(bc + d * HF + col + 1) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (col < HF) as[i][hf][col] = acc[i][j][2 * hf] + b0;
+        if (col + 1 < HF) as[i][hf][col + 1] = acc[i][j][2 * hf + 1] + b1;
+      }
   }
   __syncthreads();
-  // up(o = (dy, dx, j), p) = fea(p) wup[:, o] + bup[o], written to output
-  // pixel (2y + dy, 2x + dx), channel j.
-  warp_gemm<cdiv(kUpIn, 32), kWarps>(s_f, kUpIn, C, wup, 4 * HF, 4 * HF, kUpIn, [](int p) { return p; },
-                             [&](int o, int p, float v) {
-                               const int dd = o / HF, j = o - dd * HF;
-                               const int py = 2 * (p / kUpW) + dd / 2, px = 2 * (p % kUpW) + dd % 2;
-                               s_x[j * kUpOut + py * kUpOutW + px] = v + __ldg(bup + o);
-                             });
-  __syncthreads();
-  float* dst = out + static_cast<size_t>(n) * h2 * w2 * HF;
-  warp_gemm<cdiv(kUpOut, 32), kWarps>(s_x, kUpOut, C, fuse, HF, HF, kUpOut, [](int p) { return p; },
-                              [&](int o, int p, float v) {
-                                const int gy = 2 * y0 + p / kUpOutW, gx = 2 * x0 + p % kUpOutW;
-                                if (gy < h2 && gx < w2) dst[(static_cast<size_t>(gy) * w2 + gx) * HF + o] = v;
-                              });
+
+  // Each output row of the tile inside the frame: one contiguous NHWC run.
+  for (int ly = 0; ly < 2 * TH && 2 * y0 + ly < h2; ++ly) {
+    float* row = out + ((static_cast<size_t>(n) * h2 + 2 * y0 + ly) * w2 + 2 * x0) * HF;
+    for (int e = tid; e < run; e += kThreads) row[e] = s_r[ly * RP + e];
+  }
 }
 
 template <int C>
-int launch_up_fuse(const float* fea, const float* skip, float* out, const float* wup, const float* bup,
-                   const float* fuse, int n, int h, int w, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * up_smem_floats<C>();
+int launch_up_fuse(const float* fea, const float* skip, float* out, const float* wpk, const float* bc, int n,
+                   int h, int w, int th, int tw, cudaStream_t stream) {
+  using U = Up<C>;
+  if (th != U::TH || tw != U::TW) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * U::SMEM_FLOATS;
   cudaError_t err =
       cudaFuncSetAttribute(up_fuse_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(cdiv(w, kUpW), cdiv(h, kUpH), n);
-  up_fuse_kernel<C><<<grid, kThreads, smem, stream>>>(fea, skip, out, wup, bup, fuse, h, w);
+  const dim3 grid(cdiv(w, U::TW), cdiv(h, U::TH), n);
+  up_fuse_kernel<C><<<grid, kThreads, smem, stream>>>(fea, skip, out, wpk, bc, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -949,7 +1040,8 @@ int av_msab_pos(const void* x, void* out, const void* m, const void* wv, const v
 }
 
 // Dynamic shared memory of one block, in bytes, of the pos kernel
-// (kind 0) or the stats kernel (kind 1) at c; 0 for a c not built.
+// (kind 0), the stats kernel (kind 1) or the up-fuse kernel (kind 2) at c;
+// 0 for a c not built.
 int av_msab_smem(int kind, int c) {
   if (kind == 0 && c == 31) return sizeof(float) * Pos<31>::SMEM_FLOATS;
   if (kind == 0 && c == 62) return sizeof(float) * Pos<62>::SMEM_FLOATS;
@@ -957,23 +1049,27 @@ int av_msab_smem(int kind, int c) {
   if (kind == 1 && c == 31) return sizeof(float) * Stats<31>::SMEM_FLOATS;
   if (kind == 1 && c == 62) return sizeof(float) * Stats<62>::SMEM_FLOATS;
   if (kind == 1 && c == 124) return sizeof(float) * Stats<124>::SMEM_FLOATS;
+  if (kind == 2 && c == 62) return sizeof(float) * Up<62>::SMEM_FLOATS;
+  if (kind == 2 && c == 124) return sizeof(float) * Up<124>::SMEM_FLOATS;
   return 0;
 }
 
 // up_fuse: fea (n, h, w, c), skip (n, 2h, 2w, c/2), out (n, 2h, 2w, c/2),
-// wup (c, 2, 2, c/2), bup (2, 2, c/2), fuse (c, c/2).
-int av_msab_up_fuse(const void* fea, const void* skip, void* out, const void* wup, const void* bup,
-                    const void* fuse, int n, int h, int w, int c, void* stream) {
+// the composed weights packed as the kernel reads them, wpk
+// (4 CF + HP, NP) (ops/fused_msab.py:up_fuse_weights), and bc (2, 2, c/2);
+// fea starts on 4 * copy_vec(c) bytes, skip on 4 * copy_vec(c/2), wpk on
+// 16; th x tw must be the tile built for c (UpTile).
+int av_msab_up_fuse(const void* fea, const void* skip, void* out, const void* wpk, const void* bc, int n, int h,
+                    int w, int c, int th, int tw, void* stream) {
   if (!frames_ok(n, h, w)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* ff = static_cast<const float*>(fea);
   const auto* sf = static_cast<const float*>(skip);
   auto* of = static_cast<float*>(out);
-  const auto* uf = static_cast<const float*>(wup);
-  const auto* bf = static_cast<const float*>(bup);
-  const auto* zf = static_cast<const float*>(fuse);
-  if (c == 62) return launch_up_fuse<62>(ff, sf, of, uf, bf, zf, n, h, w, s);
-  if (c == 124) return launch_up_fuse<124>(ff, sf, of, uf, bf, zf, n, h, w, s);
+  const auto* wf = static_cast<const float*>(wpk);
+  const auto* bf = static_cast<const float*>(bc);
+  if (c == 62) return launch_up_fuse<62>(ff, sf, of, wf, bf, n, h, w, th, tw, s);
+  if (c == 124) return launch_up_fuse<124>(ff, sf, of, wf, bf, n, h, w, th, tw, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

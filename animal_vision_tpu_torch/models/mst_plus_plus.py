@@ -148,8 +148,8 @@ class MST(nn.Module):
             "enc": [(msab.weights(), _conv(down.weight)) for msab, down in self.encoder_layers],
             "bottleneck": self.bottleneck.weights(),
             "dec": [
-                (_t(up.weight.permute(0, 2, 3, 1)), _t(up.bias.permute(1, 2, 0)),
-                 _dense(fuse.weight[:, :, 0, 0]), msab.weights())
+                (K.up_fuse_weights(_t(up.weight.permute(0, 2, 3, 1)), _t(up.bias.permute(1, 2, 0)),
+                                   _dense(fuse.weight[:, :, 0, 0])), msab.weights())
                 for up, fuse, msab in self.decoder_layers
             ],
             "mapping": _conv(self.mapping.weight),
@@ -195,8 +195,8 @@ def _stage(x: torch.Tensor, st: dict, plain: bool) -> torch.Tensor:
         skips.append(fea)
         fea = conv(fea, down)
     fea = _msab(fea, st["bottleneck"], plain)
-    for (wup, bup, fuse, blocks), skip in zip(st["dec"], reversed(skips)):
-        fea = _msab(up_fuse(fea, skip, wup, bup, fuse), blocks, plain)
+    for (uw, blocks), skip in zip(st["dec"], reversed(skips)):
+        fea = _msab(up_fuse(fea, skip, uw), blocks, plain)
     return conv(fea, st["mapping"], residual=x)
 
 

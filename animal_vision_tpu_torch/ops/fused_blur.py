@@ -8,9 +8,11 @@ it launches the CUDA C++ kernel ``blur_kernel`` in ``csrc/fused_blur.cu``,
 which replaces the Pallas ``_blur_kernel``, or raises; on a CPU tensor it
 takes its plain version, ``blur_uv_plain``. Nothing falls back.
 
-The kernel stages an output tile of 64 pixels by 32, 16 or 8 rows with its
-halo in shared memory; ``tile_rows`` picks the tallest that fits the card
-and raises, naming the kernel size, when not even 8 rows fit.
+The kernel streams rows: one block per strip of 64 output columns and run
+of ``run_rows`` output rows walks down its run ``GROUP`` rows at a time,
+through a ring of staged input rows and a ring of the last k + ``GROUP``
+W-pass rows in shared memory. ``block_smem`` gives a block's shared memory and raises,
+naming the kernel size, when the card cannot hold it.
 """
 
 from __future__ import annotations
@@ -27,8 +29,14 @@ from animal_vision_tpu_torch.ops import _build
 LAUNCHES = {"blur_uv": 0}
 
 TILE_W = 64
-TILE_ROWS = (32, 16, 8)
+GROUP = 8  # rows per step of a block
+STAGES = 3  # staged input groups in flight
+RUN_ROWS = (128, 64, 32, 16)  # output rows per block, longest first
 MAX_CHANNELS = 8
+#: SMs of an H100 and the warps ``run_rows`` asks of each: runs are
+#: shortened until the grid holds that many
+SMS = 132
+WARPS_PER_SM = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +51,8 @@ def _lib() -> ctypes.CDLL:
     if lib.av_blur_uv.argtypes is None:
         lib.av_blur_uv.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.av_blur_uv.restype = ctypes.c_int
+        lib.av_blur_uv_smem.argtypes = [_I, _I]
+        lib.av_blur_uv_smem.restype = ctypes.c_int
         lib.av_blur_uv_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.av_blur_uv_smem_limit.restype = ctypes.c_int
     return lib
@@ -59,26 +69,41 @@ def smem_limit(device_index: int) -> int:
     return out.value
 
 
-def smem_bytes(ksize: int, channels: int, rows: int) -> int:
-    """Shared memory of one block: the taps (rounded up to 4 floats), the
-    staged (rows + 2R, 64 + 2R, C) tile and its (rows + 2R, 64, C) W pass.
-    Must equal ``blur_smem_bytes`` in ``csrc/fused_blur.cu``."""
-    r = ksize // 2
-    taps = (ksize + 3) & ~3
-    return 4 * (taps + (rows + 2 * r) * (TILE_W + 2 * r) * channels + (rows + 2 * r) * TILE_W * channels)
+def smem_bytes(ksize: int, channels: int) -> int:
+    """Shared memory of one block: the taps rounded up to 4 floats (kp),
+    the ring of kp + GROUP W-pass rows (rounded up to whole groups) of 64
+    pixels, 3 staged groups of GROUP input spans of 64 + kp pixels, and one
+    int per element of a span (its source offset). Must equal
+    ``blur_smem_bytes`` in ``csrc/fused_blur.cu``."""
+    kp = (ksize + 3) & ~3
+    ring = GROUP * (-(-kp // GROUP) + 1)
+    span = (TILE_W + kp) * channels
+    return 4 * (kp + ring * TILE_W * channels + STAGES * GROUP * span + span)
 
 
-def tile_rows(ksize: int, channels: int, limit: int) -> int:
-    """The tallest output tile whose block fits in ``limit`` bytes of shared
-    memory; raises when not even the shortest does."""
-    for rows in TILE_ROWS:
-        if smem_bytes(ksize, channels, rows) <= limit:
+def library_smem_bytes(ksize: int, channels: int) -> int:
+    """A block's shared memory as the library counts it (builds the library)."""
+    return _lib().av_blur_uv_smem(ksize, channels)
+
+
+def block_smem(ksize: int, channels: int, limit: int) -> int:
+    """A block's shared memory in bytes; raises when it is above ``limit``."""
+    need = smem_bytes(ksize, channels)
+    if need > limit:
+        raise ValueError(f"blur_uv: ksize {ksize} with {channels} channels needs {need} bytes of shared memory "
+                         f"per block; the card allows {limit}")
+    return need
+
+
+def run_rows(n: int, h: int, w: int, channels: int) -> int:
+    """Output rows per block: the longest run whose grid still gives every
+    SM ``WARPS_PER_SM`` warps (blocks of 2 min(C, 4) warps; the shortest run
+    for small frames)."""
+    warps = n * -(-w // TILE_W) * 2 * min(channels, 4)
+    for rows in RUN_ROWS:
+        if warps * -(-h // rows) >= WARPS_PER_SM * SMS:
             return rows
-    raise ValueError(
-        f"blur_uv: ksize {ksize} with {channels} channels needs "
-        f"{smem_bytes(ksize, channels, TILE_ROWS[-1])} bytes of shared memory even with "
-        f"{TILE_ROWS[-1]}-row tiles; the card allows {limit}"
-    )
+    return RUN_ROWS[-1]
 
 
 def _check(img: torch.Tensor, taps: torch.Tensor) -> None:
@@ -109,8 +134,9 @@ def blur_uv(img: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"frames on unsupported device {img.device}")
     n, h, w, c = img.shape
     ksize = int(taps.shape[0])
-    rows = tile_rows(ksize, c, smem_limit(img.device.index if img.device.index is not None
-                                          else torch.cuda.current_device()))
+    block_smem(ksize, c, smem_limit(img.device.index if img.device.index is not None
+                                     else torch.cuda.current_device()))
+    rows = run_rows(n, h, w, c)
     frames = img.contiguous()
     taps = taps.contiguous()
     out = torch.empty_like(frames)

@@ -27,8 +27,12 @@ carry every convolution and MSAB block of ``models/mst_plus_plus.py`` on
   Splitting costs one device-memory round trip of res1 and keeps the
   pos kernel's halo at 2 pixels;
 - ``up_fuse``: the decoder's 2x2 stride-2 transposed convolution (one bias
-  per (dy, dx, out)), depth-to-space and the 1x1 fuse over [up | skip]. It
-  replaces ``_up_fuse_kernel`` and ``_up_fuse_stats_kernel``.
+  per (dy, dx, out)), depth-to-space and the 1x1 fuse over [up | skip], as
+  one 3xTF32 product per output parity with the transposed convolution
+  folded into the fuse (``UpFuseWeights``, made once per model by
+  ``up_fuse_weights``; one input tile per C, ``UP_TILES``; ``up_tile_for``
+  raises where two blocks of it do not fit an SM). It replaces
+  ``_up_fuse_kernel`` and ``_up_fuse_stats_kernel``.
 
 Between pass A and pass B, ``attn_matrix`` (the counterpart of the XLA
 glue ``_attn_blockdiag``) folds the stats into M = Wv A Wproj with plain
@@ -39,9 +43,8 @@ On a CUDA tensor each wrapper launches its CUDA C++ kernel from
 ``csrc/fused_msab.cu`` or raises; on a CPU tensor it takes its plain
 version. Nothing falls back. The TPU pixel packing, neighbour-pack
 matrices, GELU polynomial and bf16 products are not carried over: the
-kernels compute in float32 with ``erff`` (the products of ``conv``,
-``attn_stats`` and ``msab_pos`` in 3xTF32: each operand split into two TF32
-parts, the sum in float32).
+kernels compute in float32 with ``erff`` (every product in 3xTF32: each
+operand split into two TF32 parts, the sum in float32).
 
 Weights are in the layouts the kernels read, made once per model by
 ``models/mst_plus_plus.py``: a convolution as (K, K, Cin, Cout), a 1x1
@@ -77,6 +80,11 @@ POS_TILES = {31: (8, 16), 62: (8, 8), 124: (4, 8)}
 #: (K, Cin, Cout) the convolution kernel is built for: conv_in, the 3x3
 #: C -> C maps, the two 4x4 stride-2 downsamples.
 CONV_SHAPES = ((3, 3, 31), (3, 31, 31), (4, 31, 62), (4, 62, 124))
+#: The input tile (rows, columns) of the up-fuse kernel at each C (``UpTile``
+#: in ``csrc/fused_msab.cu``): the largest of which two blocks fit an H100 SM.
+UP_TILES = {62: (8, 8), 124: (4, 8)}
+#: Rows of W' per parity in each weight slab of the up-fuse kernel.
+UP_FEA_SLICE = {62: 32, 124: 16}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,6 +109,57 @@ class MsabWeights(NamedTuple):
     w4: torch.Tensor  # (4C, C)
 
 
+class UpFuseWeights(NamedTuple):
+    """One decoder level's weights (C channels in, C/2 out): the raw ones,
+    which the plain version reads, and the composed ones the kernel reads."""
+
+    wup: torch.Tensor  # (C, 2, 2, C/2), the transposed convolution
+    bup: torch.Tensor  # (2, 2, C/2), its bias per (dy, dx, out)
+    fuse: torch.Tensor  # (C, C/2), the 1x1 fuse over [up | skip]
+    wc: torch.Tensor  # (2, 2, C, C/2): wup[:, dy, dx] fuse[:C/2]
+    bc: torch.Tensor  # (2, 2, C/2): bup[dy, dx] fuse[:C/2]
+    wskip: torch.Tensor  # (C/2, C/2): fuse[C/2:]
+    packed: torch.Tensor  # (4 CF + HP, NP): wc and wskip as the kernel reads them (``_pack_up``)
+
+
+def _up_dims(c: int) -> tuple[int, int, int]:
+    """(CF, HP, NP): C and C/2 rounded up to 32 (the kernel's fea and skip
+    depths) and the output columns, C/2 rounded up to 32."""
+    half = c // 2
+    return -(-c // 32) * 32, -(-half // 32) * 32, -(-half // 32) * 32
+
+
+def _pack_up(wc: torch.Tensor, wskip: torch.Tensor) -> torch.Tensor:
+    """The up-fuse kernel's weight slabs in the order it streams them: for
+    each slice of ``UP_FEA_SLICE`` rows, that slice of wc[d] for the four
+    parities d = 2 dy + dx; then wskip; zero-padded to CF, HP rows and NP
+    columns."""
+    c, half = int(wc.shape[2]), int(wc.shape[3])
+    cf, hp, np_ = _up_dims(c)
+    kf = UP_FEA_SLICE[c]
+    wf = torch.zeros(4, cf, np_, dtype=wc.dtype, device=wc.device)
+    wf[:, :c, :half] = wc.reshape(4, c, half)
+    ws = torch.zeros(hp, np_, dtype=wc.dtype, device=wc.device)
+    ws[:half, :half] = wskip
+    return torch.cat([wf.reshape(4, cf // kf, kf, np_).transpose(0, 1).reshape(4 * cf, np_), ws]).contiguous()
+
+
+def up_fuse_weights(wup: torch.Tensor, bup: torch.Tensor, fuse: torch.Tensor) -> UpFuseWeights:
+    """The decoder level's ``UpFuseWeights``: the transposed convolution
+    folded into the fuse, composed in float64 (no TF32 on any device) and
+    rounded once to float32, on the weights' device."""
+    c, half = int(wup.shape[0]), int(wup.shape[-1])
+    if (c not in UP_TILES or tuple(wup.shape) != (c, 2, 2, half) or half != c // 2 or tuple(bup.shape) != (2, 2, half)
+            or tuple(fuse.shape) != (c, half)):
+        raise ValueError(f"up_fuse_weights: C in {tuple(UP_TILES)}; wup {tuple(wup.shape)}, bup {tuple(bup.shape)}, "
+                         f"fuse {tuple(fuse.shape)}")
+    f_up = fuse[:half].double()
+    wc = torch.matmul(wup.double().permute(1, 2, 0, 3), f_up).float().contiguous()
+    bc = torch.matmul(bup.double(), f_up).float().contiguous()
+    wskip = fuse[half:].contiguous()
+    return UpFuseWeights(wup.contiguous(), bup.contiguous(), fuse.contiguous(), wc, bc, wskip, _pack_up(wc, wskip))
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -112,7 +171,7 @@ def _lib() -> ctypes.CDLL:
         lib.av_msab_conv.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.av_msab_stats.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.av_msab_pos.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-        lib.av_msab_up_fuse.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.av_msab_up_fuse.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.av_msab_conv_smem.argtypes = [_I, _I, _I]
         lib.av_msab_smem.argtypes = [_I, _I]
         for fn in (lib.av_msab_conv, lib.av_msab_stats, lib.av_msab_pos, lib.av_msab_up_fuse,
@@ -217,16 +276,16 @@ def msab_apply_plain(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torc
     return fused_mst.ffn_plain(msab_pos_plain(x, m, blk), blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
 
 
-def up_fuse_plain(fea: torch.Tensor, skip: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
-                  fuse: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``up_fuse``: the 1x1 map to (dy, dx, out) channels
-    plus the bias, depth-to-space, then the 1x1 fuse of [up | skip]."""
-    _check_up(fea, skip, wup, bup, fuse)
+def up_fuse_plain(fea: torch.Tensor, skip: torch.Tensor, uw: UpFuseWeights) -> torch.Tensor:
+    """Plain version of ``up_fuse``, from the raw weights: the 1x1 map to
+    (dy, dx, out) channels plus the bias, depth-to-space, then the 1x1 fuse
+    of [up | skip] (two products, not the kernel's composed one)."""
+    _check_up(fea, skip, uw)
     n, h, w, c = fea.shape
     half = c // 2
-    up = linalg.frame_matmul(fea, wup.reshape(c, 4 * half)) + bup.reshape(4 * half)
+    up = linalg.frame_matmul(fea, uw.wup.reshape(c, 4 * half)) + uw.bup.reshape(4 * half)
     up = up.reshape(n, h, w, 2, 2, half).permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, half)
-    return linalg.frame_matmul(torch.cat([up, skip], dim=-1), fuse)
+    return linalg.frame_matmul(torch.cat([up, skip], dim=-1), uw.fuse)
 
 
 # ---------------------------------------------------------------------------
@@ -385,10 +444,10 @@ def pos_smem_bytes(c: int, tile: tuple[int, int]) -> int:
 
 
 def kernel_smem_bytes(kind: str, c: int) -> int:
-    """Dynamic shared memory of one block of the ``"pos"`` or ``"stats"``
-    kernel at C = ``c`` as the library reports it, in bytes (builds the
-    library)."""
-    return _lib().av_msab_smem({"pos": 0, "stats": 1}[kind], c)
+    """Dynamic shared memory of one block of the ``"pos"``, ``"stats"`` or
+    ``"up_fuse"`` kernel at C = ``c`` as the library reports it, in bytes
+    (builds the library)."""
+    return _lib().av_msab_smem({"pos": 0, "stats": 1, "up_fuse": 2}[kind], c)
 
 
 def pos_tile_for(c: int, limit: int) -> tuple[int, int]:
@@ -448,30 +507,70 @@ def msab_apply(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tens
     return fused_mst.ffn(msab_pos(x, m, blk), blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
 
 
-def _check_up(fea, skip, wup, bup, fuse) -> None:
+def _check_up(fea, skip, uw: UpFuseWeights) -> None:
     _frames(fea, "up_fuse", (62, 124))
     n, h, w, c = fea.shape
     half = c // 2
-    if (tuple(skip.shape) != (n, 2 * h, 2 * w, half) or tuple(wup.shape) != (c, 2, 2, half)
-            or tuple(bup.shape) != (2, 2, half) or tuple(fuse.shape) != (2 * half, half)):
-        raise ValueError(f"up_fuse: fea {tuple(fea.shape)}, skip {tuple(skip.shape)}, wup {tuple(wup.shape)}, "
-                         f"bup {tuple(bup.shape)}, fuse {tuple(fuse.shape)}")
-    _same_device(fea, "up_fuse", skip, wup, bup, fuse)
+    cf, hp, np_ = _up_dims(c)
+    shapes = tuple(tuple(t.shape) for t in uw)
+    if tuple(skip.shape) != (n, 2 * h, 2 * w, half) or shapes != (
+            (c, 2, 2, half), (2, 2, half), (c, half), (2, 2, c, half), (2, 2, half), (half, half), (4 * cf + hp, np_)):
+        raise ValueError(f"up_fuse: fea {tuple(fea.shape)}, skip {tuple(skip.shape)}, weights {shapes}")
+    _same_device(fea, "up_fuse", skip, *uw)
 
 
-def up_fuse(fea: torch.Tensor, skip: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
-            fuse: torch.Tensor) -> torch.Tensor:
+def up_smem_bytes(c: int, tile: tuple[int, int]) -> int:
+    """Shared memory of one block of the up-fuse kernel: fea over the tile,
+    the skip rows of the output tile (each 2 tw pixels plus a pad of 4
+    floats), and a ring of three weight slabs (the larger of four parities'
+    fea slices and a 32-row skip slice), at the kernel's padded pitches.
+    Must equal ``Up::SMEM_FLOATS`` in ``csrc/fused_msab.cu``."""
+    th, tw = tile
+    half = c // 2
+    cf, _, np_ = _up_dims(c)
+    slab = max(4 * UP_FEA_SLICE[c], 32) * (np_ + 8)
+    return 4 * (th * tw * (cf + 4) + 2 * th * (2 * tw * half + 4) + 3 * slab)
+
+
+def up_tile_for(c: int, limit: int) -> tuple[int, int]:
+    """The up-fuse kernel's input tile at C = ``c``; raises when two blocks
+    of it do not fit in ``limit`` bytes of one SM's shared memory
+    (``fused_mst.smem_limit``)."""
+    th, tw = UP_TILES[c]
+    need = 2 * up_smem_bytes(c, (th, tw))
+    if need > limit:
+        raise ValueError(f"up_fuse: C = {c} needs {need} bytes of shared memory for two blocks of its {th}x{tw} "
+                         f"tile; an SM has {limit}")
+    return th, tw
+
+
+def up_fuse(fea: torch.Tensor, skip: torch.Tensor, uw: UpFuseWeights) -> torch.Tensor:
     """Decoder level of (N, H, W, C) ``fea`` and its (N, 2H, 2W, C/2)
-    ``skip``: the 2x2 stride-2 transposed convolution with ``wup``
-    (C, 2, 2, C/2) and one bias per (dy, dx, out) ``bup`` (2, 2, C/2),
-    depth-to-space, then the 1x1 ``fuse`` (C, C/2) over [up | skip]."""
+    ``skip``: the 2x2 stride-2 transposed convolution with ``uw.wup``
+    (C, 2, 2, C/2) and one bias per (dy, dx, out) ``uw.bup`` (2, 2, C/2),
+    depth-to-space, then the 1x1 ``uw.fuse`` (C, C/2) over [up | skip]. The
+    kernel computes [fea | skip] [wc[dy, dx] ; wskip] + bc[dy, dx] for each
+    output parity (dy, dx) in 3xTF32."""
     if fea.device.type == "cpu":
-        return up_fuse_plain(fea, skip, wup, bup, fuse)
-    _check_up(fea, skip, wup, bup, fuse)
+        return up_fuse_plain(fea, skip, uw)
+    from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
+
+    _check_up(fea, skip, uw)
     n, h, w, c = fea.shape
+    # the kernel copies fea in 8- or 16-byte pieces and skip in 4- or 8-byte
+    # pieces (C = 62, 124), so their starts must be aligned as much
+    align_f, align_s = (8, 4) if c == 62 else (16, 8)
+    if uw.packed.data_ptr() % 16:
+        raise ValueError("up_fuse: the packed weights must start on 16 bytes")
+    index = fea.device.index if fea.device.index is not None else torch.cuda.current_device()
+    th, tw = up_tile_for(c, fused_mst.smem_limit(index))
     f, s = fea.contiguous(), skip.contiguous()
+    if f.data_ptr() % align_f:
+        f = f.clone()
+    if s.data_ptr() % align_s:
+        s = s.clone()
     out = torch.empty((n, 2 * h, 2 * w, c // 2), dtype=torch.float32, device=fea.device)
     _build.launch(_lib(), "av_msab_up_fuse", fea.device, f.data_ptr(), s.data_ptr(), out.data_ptr(),
-                  _ptr(wup), _ptr(bup), _ptr(fuse), n, h, w, c)
+                  _ptr(uw.packed), _ptr(uw.bc), n, h, w, c, th, tw)
     LAUNCHES["up_fuse_kernel"] += 1
     return out

@@ -11,10 +11,10 @@ raises on failure:
 2. build: compiles every ``csrc/*.cu`` kernel library (one nvcc per source,
    all at once) and prints ptxas' register and shared-memory report; for
    the tensor-core kernels (``conv_kernel``, ``attn_stats_kernel``,
-   ``msab_pos_kernel``, ``ffn_kernel``) it prints each instance's
-   registers, spills and dynamic shared memory and the count of ``HMMA``
-   instructions in its SASS (``cuobjdump --dump-sass``), and fails if one
-   has none;
+   ``msab_pos_kernel``, ``up_fuse_kernel``, ``ffn_kernel``) it prints each
+   instance's registers, spills and dynamic shared memory and the count of
+   ``HMMA`` instructions in its SASS (``cuobjdump --dump-sass``), and fails
+   if one has none;
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card at 1080x1920 and 721x1283: the three non-UV kernels on two
    random frames plus a frame of 0/1 values (so both branches of the
@@ -28,12 +28,14 @@ raises on failure:
    with C = 31, weights of scale 0.2, <= 1e-4; then each kernel's time
    (CUDA events), its plain version's time, its bound, and a library
    reference for the UV blur (reflect pad + two depthwise convolutions)
-   and the MST++ convolution (``F.conv2d`` on channels-last tensors, with
-   the ratio of the kernel's time to it); ``conv``, ``attn_stats``,
-   ``msab_pos``, ``msab_apply`` and ``ffn`` also get a second bound, for
-   their 3xTF32 tensor-core products (the largest of 3 x product operations
-   / 495 TFLOP/s, the other operations / 67 TFLOP/s and bytes / 3.35 TB/s),
-   which is the ``bound_ms`` of their summary entries;
+   and the MST++ convolution (``F.conv2d`` on channels-last tensors), each
+   with the ratio of the kernel's time to it; ``conv``, ``attn_stats``,
+   ``msab_pos``, ``msab_apply``, ``up_fuse`` (its weights composed by
+   ``up_fuse_weights``, its operations those of the composed product) and
+   ``ffn`` also get a second bound, for their 3xTF32 tensor-core products
+   (the largest of 3 x product operations / 495 TFLOP/s, the other
+   operations / 67 TFLOP/s and bytes / 3.35 TB/s), which is the
+   ``bound_ms`` of their summary entries;
 4. main path: ``get_animal(name).visualize(frame)`` and
    ``visualize_batch_device`` (4 frames already on the card) at 1080p, first
    for the 20 non-UV species, then for the ported UV species, with the
@@ -91,8 +93,8 @@ TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 # kernels whose products run in 3xTF32 on the tensor cores: the summary names
 # (msab_apply_kernel: msab_pos_kernel, then ffn_kernel) and the built
 # instances the build phase reports
-TC_KERNELS = ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel", "ffn_kernel")
-TC_INSTANCES = ("conv_kernel", "attn_stats_kernel", "msab_pos_kernel", "ffn_kernel")
+TC_KERNELS = ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel", "up_fuse_kernel", "ffn_kernel")
+TC_INSTANCES = ("conv_kernel", "attn_stats_kernel", "msab_pos_kernel", "up_fuse_kernel", "ffn_kernel")
 KERNEL_REPS = 100
 PLAIN_REPS = 5
 MAIN_REPS = 100
@@ -302,7 +304,7 @@ def build_phase() -> dict:
 def instance_name(mangled: str) -> str:
     """``conv_kernel<4,2,62,124>`` from a mangled kernel name (the name
     itself when it is not one of the tensor-core kernels)."""
-    m = re.search(r"\d+((?:conv|ffn|attn_stats|msab_pos)_kernel)I((?:Li-?\d+E)+)E", mangled)
+    m = re.search(r"\d+((?:conv|ffn|attn_stats|msab_pos|up_fuse)_kernel)I((?:Li-?\d+E)+)E", mangled)
     if not m:
         return mangled
     return f"{m.group(1)}<{','.join(re.findall(r'Li(-?[0-9]+)E', m.group(2)))}>"
@@ -349,6 +351,8 @@ def tensor_core_report(reports: dict) -> dict:
             row["smem_bytes"] = M.stats_smem_bytes(args[0])
         elif inst.startswith("msab_pos_kernel"):
             row["smem_bytes"] = M.pos_smem_bytes(args[0], M.POS_TILES[args[0]])
+        elif inst.startswith("up_fuse_kernel"):
+            row["smem_bytes"] = M.up_smem_bytes(args[0], M.UP_TILES[args[0]])
         else:
             row["smem_bytes"] = M.conv_smem_bytes(args[0], args[2], args[3])
     return out
@@ -529,11 +533,12 @@ def blur_phase(device: torch.device, shapes=SHAPES, ksizes=BLUR_KSIZES, channels
                 row = dict(
                     kernel="blur_uv", case=f"C={c} k={k}", ksize=k, channels=c, h=h, w=w, frames=3,
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=library_err,
+                    library_ratio=None if library_ms is None else ms / library_ms,
                     bound_ms=bound_s * 1e3, bytes=nbytes, ops=ops,
                     bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
                 )
                 rows.append(row)
-                lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+                lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms, {ms / library_ms:.3f}x its time"
                 log(f"[kernel] blur_uv       {row['case']:<24} {h}x{w} 3 frames: max err {err:.3g}, {ms:.4f} ms "
                     f"(plain {plain_ms:.3f} ms, library {lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
                     f"{row['bound_ms'] / ms:.1%} of bound)")
@@ -629,13 +634,17 @@ def mst_kernel_cases(hw: tuple[int, int], n: int, device: torch.device, gen) -> 
         hh, ww, c = levels[lvl]
         half = c // 2
         fea, skip = randn(n, hh, ww, c, scale=0.5), randn(n, 2 * hh, 2 * ww, half, scale=0.5)
-        wup, bup, fuse = randn(c, 2, 2, half, scale=0.2), randn(2, 2, half, scale=0.2), randn(c, half, scale=0.2)
+        uw = M.up_fuse_weights(randn(c, 2, 2, half, scale=0.2), randn(2, 2, half, scale=0.2),
+                               randn(c, half, scale=0.2))
         out_px = n * 4 * hh * ww
+        # the composed product the kernel (and the JAX kernel) computes: one
+        # product of depth C + C/2 per output pixel, plus the bias
+        prod = out_px * half * 2 * (c + half)
         cases.append(dict(
-            kernel="up_fuse_kernel", case=f"{c}->{half}", run=lambda: M.up_fuse(fea, skip, wup, bup, fuse),
-            plain=lambda: M.up_fuse_plain(fea, skip, wup, bup, fuse), library=None,
-            bytes=4 * (n * hh * ww * c + 2 * out_px * half + wup.numel() + bup.numel() + fuse.numel()),
-            ops=out_px * half * (2 * c + 1) + out_px * 2 * c * half,
+            kernel="up_fuse_kernel", case=f"{c}->{half}", run=lambda: M.up_fuse(fea, skip, uw),
+            plain=lambda: M.up_fuse_plain(fea, skip, uw), library=None,
+            bytes=4 * (n * hh * ww * c + 2 * out_px * half + uw.wc.numel() + uw.bc.numel() + uw.wskip.numel()),
+            ops=prod + out_px * half, tc_ops=(prod, out_px * half),
         ))
 
     conv("3->31 k3 (conv_in)", 0, 3, 31, 3, False)
@@ -1200,7 +1209,8 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
     1080p. Launches come from the main-path run of the kernel's species.
     The tensor-core kernels' ``bound_ms`` is their 3xTF32 bound (the f32
     one beside it); the convolution also reports its worst ratio to
-    ``F.conv2d`` over its 10 cases."""
+    ``F.conv2d`` over its 10 cases, the blur its worst ratio to the
+    three-call library reference over its cases."""
     representative = {"iso_u8": "dog", "streak_u8": "deer", "pointwise_u8": "rat gain"}
     out = []
     for kernel, case in representative.items():
@@ -1215,12 +1225,14 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
         ))
     k, c = BLUR_REPRESENTATIVE
     rep = next(r for r in blur_rows if (r["ksize"], r["channels"], r["h"], r["w"]) == (k, c, *MAIN_HW))
+    worst = max((r for r in blur_rows if r["library_ratio"] is not None), key=lambda r: r["library_ratio"])
     out.append(dict(
         name="blur_uv", route="cuda", source=SOURCES["blur_uv"], replaces=REPLACES["blur_uv"],
         launches=launches["blur_uv"], max_abs_err=max(r["max_abs_err"] for r in blur_rows),
         case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']} frames",
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-        library_ms=rep["library_ms"],
+        library_ms=rep["library_ms"], library_ratio_worst=worst["library_ratio"],
+        library_ratio_worst_case=f"{worst['case']} {worst['h']}x{worst['w']}",
     ))
     for kernel, case in MST_REPRESENTATIVE.items():
         rows = [r for r in mst_rows if r["kernel"] == kernel]

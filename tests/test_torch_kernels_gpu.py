@@ -160,10 +160,50 @@ def test_blur_uv_kernel(cuda, no_plain_on_cuda, shape, channels, ksize):
     assert (got.cpu() - want).abs().max().item() <= 1e-5
 
 
+def _blur_vs_plain(no_plain_on_cuda, shape, channels, ksize, seed=0):
+    x = torch.from_numpy(np.random.default_rng(seed + ksize).random((*shape, channels), dtype=np.float32))
+    taps = blur.uv_taps((ksize - 1) / 6, "cpu")
+    got = B.blur_uv(x.to("cuda"), taps.to("cuda"))
+    want = no_plain_on_cuda["blur_uv_plain"](x, taps)
+    assert got.shape == x.shape
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("ksize", [3, 19])
+@pytest.mark.parametrize("channels", [1, 2, 3, 8])
+@pytest.mark.parametrize("rows", [16, 64, 128])
+@pytest.mark.parametrize("height,width", [((1, 0), 65), ((18, 0), 63), ((-1, 1), 130), ((1, 1), 1), ((3, 2), 65)])
+def test_blur_uv_kernel_runs(cuda, no_plain_on_cuda, monkeypatch, height, width, rows, channels, ksize):
+    """Runs of 16, 64 and 128 rows (the wrapper's run length pinned), with
+    heights (a, b) of a + b runs: 1, k - 1 (at k = 19), a run less one row,
+    a run plus one and two runs plus 3, so that runs end mid-frame and
+    groups of 4 rows are ragged; widths of 1, 63, 65 and 130; C from 1 to
+    8."""
+    monkeypatch.setattr(B, "RUN_ROWS", (rows,))
+    h = height[0] + height[1] * rows
+    assert B.run_rows(1, h, width, channels) == rows
+    _blur_vs_plain(no_plain_on_cuda, (1, h, width), channels, ksize)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 8])
+def test_blur_uv_kernel_frames_independent(cuda, no_plain_on_cuda, channels):
+    """Each frame of a batch equals the same frame alone, bit for bit, and
+    two runs are bit-equal."""
+    x = torch.from_numpy(np.random.default_rng(channels).random((3, 70, 130, channels), dtype=np.float32)).to(cuda)
+    taps = blur.uv_taps(3.0, "cuda")
+    got = B.blur_uv(x, taps)
+    assert torch.equal(got, B.blur_uv(x, taps))
+    for i in range(x.shape[0]):
+        assert torch.equal(got[i:i + 1], B.blur_uv(x[i:i + 1].contiguous(), taps))
+
+
 def test_blur_uv_raises_above_shared_memory(cuda):
     """A kernel too wide for the card's shared memory raises and names its
-    size; nothing falls back to the plain version."""
-    ksize = 201
+    size; nothing falls back to the plain version. The library's shared
+    memory per block is the wrapper's count."""
+    for k, c in ((3, 1), (19, 3), (37, 8)):
+        assert B.library_smem_bytes(k, c) == B.smem_bytes(k, c)
+    ksize = 301
     taps = torch.full((ksize,), 1.0 / ksize, device=cuda)
     with pytest.raises(ValueError, match=f"ksize {ksize}"):
         B.blur_uv(torch.zeros(1, 8, 8, 3, device=cuda), taps)
@@ -366,19 +406,55 @@ def test_msab_pos_tile_raises_above_shared_memory(cuda):
         M.pos_tile_for(62, 64 * 1024)
 
 
-@pytest.mark.parametrize("shape", [(1, 4, 4), (2, 7, 11), (1, 17, 30)])
-@pytest.mark.parametrize("c", [124, 62])
-def test_up_fuse_kernel(cuda, no_plain_on_cuda, shape, c):
-    """The bias's four (dy, dx) copies differ."""
+def _up_operands(shape, c):
+    """fea, skip and the decoder level's weights; the bias's four (dy, dx)
+    copies differ."""
     rng = np.random.default_rng(c + 2)
     n, h, w = shape
     fea = _randn(rng, n, h, w, c, scale=0.5)
     skip = _randn(rng, n, 2 * h, 2 * w, c // 2, scale=0.5)
-    wup, bup = _randn(rng, c, 2, 2, c // 2, scale=0.2), _randn(rng, 2, 2, c // 2, scale=0.2)
-    fuse = _randn(rng, c, c // 2, scale=0.2)
-    got = _counted("up_fuse_kernel", M.up_fuse, *(t.to(cuda) for t in (fea, skip, wup, bup, fuse)))
-    want = no_plain_on_cuda["up_fuse_plain"](fea, skip, wup, bup, fuse)
+    raw = (_randn(rng, c, 2, 2, c // 2, scale=0.2), _randn(rng, 2, 2, c // 2, scale=0.2),
+           _randn(rng, c, c // 2, scale=0.2))
+    return fea, skip, raw
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4), (2, 7, 11), (1, 17, 30), (1, 33, 70), (2, 9, 130), (1, 1, 1)])
+@pytest.mark.parametrize("c", [124, 62])
+def test_up_fuse_kernel(cuda, no_plain_on_cuda, shape, c):
+    """Several tiles with ragged edges, against the plain version's two
+    products from the raw weights."""
+    fea, skip, raw = _up_operands(shape, c)
+    uw = M.up_fuse_weights(*raw)
+    got = _counted("up_fuse_kernel", M.up_fuse, fea.to(cuda), skip.to(cuda),
+                   M.up_fuse_weights(*(t.to(cuda) for t in raw)))
+    want = no_plain_on_cuda["up_fuse_plain"](fea, skip, uw)
+    assert got.shape == want.shape
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("c", [124, 62])
+def test_up_fuse_kernel_frames_independent(cuda, no_plain_on_cuda, c):
+    """Each frame of a batch equals the same frame alone, bit for bit, and
+    two runs are bit-equal."""
+    fea, skip, raw = _up_operands((3, 9, 21), c)
+    fea, skip, uw = fea.to(cuda), skip.to(cuda), M.up_fuse_weights(*(t.to(cuda) for t in raw))
+    got = M.up_fuse(fea, skip, uw)
+    assert torch.equal(got, M.up_fuse(fea, skip, uw))
+    for i in range(fea.shape[0]):
+        assert torch.equal(got[i:i + 1], M.up_fuse(fea[i:i + 1].contiguous(), skip[i:i + 1].contiguous(), uw))
+
+
+def test_up_fuse_tile_raises_above_shared_memory(cuda):
+    """Two blocks of the 8x8 tile fit an SM of this card at C = 62 and of
+    4x8 at C = 124, and the library's shared memory per block is the
+    wrapper's count; where two do not fit, the wrapper raises and names C
+    and the tile."""
+    limit = T.smem_limit(torch.cuda.current_device())
+    assert [M.up_tile_for(c, limit) for c in (62, 124)] == [(8, 8), (4, 8)]
+    for c in (62, 124):
+        assert M.kernel_smem_bytes("up_fuse", c) == M.up_smem_bytes(c, M.UP_TILES[c])
+    with pytest.raises(ValueError, match="C = 124 .* 4x8 tile"):
+        M.up_tile_for(124, 128 * 1024)
 
 
 def test_mst_on_card_vs_cpu(cuda, no_plain_on_cuda):

@@ -85,9 +85,9 @@ def test_down4x4(c):
     assert np.abs(got - want).max() <= TOL
 
 
-@pytest.mark.parametrize("c", [124, 62])
-def test_up_fuse(c):
-    """The up-conv bias's four (dy, dx) copies differ."""
+def _up_case(c):
+    """A decoder level whose up-conv bias's four (dy, dx) copies differ, and
+    the JAX ``packed_up_fuse`` output for it."""
     rng = np.random.default_rng(4 + c)
     p, half = J._pack_of(c), c // 2
     h, w = 3, 4 * p
@@ -96,8 +96,32 @@ def test_up_fuse(c):
     assert np.abs(bup - bup.mean(axis=(0, 1))).max() > 0.01
     want = J.packed_up_fuse(_packed(fea, p), _packed(skip, 2 * p), jnp.asarray(wup.reshape(1, 1, c, 4 * half)),
                             jnp.asarray(bup.reshape(-1)), jnp.asarray(fuse.reshape(1, 1, c, half)), c, p)
-    got = M.up_fuse_plain(_t(fea)[None], _t(skip)[None], _t(wup), _t(bup), _t(fuse))[0].numpy()
-    assert np.abs(got - np.asarray(want).reshape(2 * h, 2 * w, half)).max() <= TOL
+    uw = M.up_fuse_weights(_t(wup), _t(bup), _t(fuse))
+    return _t(fea)[None], _t(skip)[None], uw, np.asarray(want).reshape(2 * h, 2 * w, half)
+
+
+@pytest.mark.parametrize("c", [124, 62])
+def test_up_fuse(c):
+    """``up_fuse_plain`` (two products from the raw weights of
+    ``UpFuseWeights``) against the JAX ``packed_up_fuse``."""
+    fea, skip, uw, want = _up_case(c)
+    got = M.up_fuse_plain(fea, skip, uw)[0].numpy()
+    assert np.abs(got - want).max() <= TOL
+
+
+@pytest.mark.parametrize("c", [124, 62])
+def test_up_fuse_composed(c):
+    """The kernel's composed product, [fea | skip] [wc[dy, dx] ; wskip] +
+    bc[dy, dx] per output parity, in plain PyTorch against the JAX
+    ``packed_up_fuse`` (which folds the same way)."""
+    fea, skip, uw, want = _up_case(c)
+    _, h, w, _ = fea.shape
+    got = torch.empty(2 * h, 2 * w, c // 2)
+    for dy in range(2):
+        for dx in range(2):
+            a = torch.cat([fea[0], skip[0, dy::2, dx::2]], dim=-1)
+            got[dy::2, dx::2] = a @ torch.cat([uw.wc[dy, dx], uw.wskip]) + uw.bc[dy, dx]
+    assert np.abs(got.numpy() - want).max() <= TOL
 
 
 def _msab_case(c, seed):

@@ -1,7 +1,8 @@
 """The arithmetic of the port's tensor-core kernels, emulated in numpy.
 
-``conv_kernel``, ``attn_stats_kernel`` and ``msab_pos_kernel``
-(``csrc/fused_msab.cu``) and ``ffn_kernel`` (``csrc/fused_mst.cu``) run
+``conv_kernel``, ``attn_stats_kernel``, ``msab_pos_kernel`` and
+``up_fuse_kernel`` (``csrc/fused_msab.cu``) and ``ffn_kernel``
+(``csrc/fused_mst.cu``) run
 their float32 products as 3xTF32 on
 ``mma.sync.m16n8k8`` (``csrc/mma_tf32.cuh``): each operand is split as
 hi = rna(x), lo = rna(x - hi), where rna rounds to TF32 (10 mantissa bits)
@@ -17,10 +18,13 @@ dimensions (27, 279, 496, 992) and the FFN's (C and 4C for C = 31, 62,
 a float64 product, and one TF32 pass does not at 992: the reason for the
 three passes. The stats kernel's Gram (31 x 31 per head, the pixels as
 the inner dimension) is emulated with its tiles, blocks and fixed-order
-reduction at 2^16 + 29 pixels, within 1e-5 of max |G|."""
+reduction at 2^16 + 29 pixels, within 1e-5 of max |G|. The up-fuse's
+composed product (inner dimensions 93 and 186) stays within 1e-4 in
+3xTF32, and one TF32 pass does not at 186."""
 
 import numpy as np
 import pytest
+import torch
 
 from animal_vision_tpu_torch.ops import fused_msab, fused_mst
 
@@ -209,3 +213,45 @@ def test_pos_products_3xtf32_within_the_card_bar(c, which):
     x = (rng.standard_normal((ROWS, c)) * 0.5).astype(np.float32)
     w = (rng.standard_normal((c, 32)) * 0.2).astype(np.float32)
     assert _error(x, w, 32) <= TOL
+
+
+# --- the decoder's up-fuse (up_fuse_kernel): one composed product per parity ---
+
+
+def _up_fuse_operands(c: int):
+    """fea and skip rows of scale 0.5, and wc[dy, dx] and wskip composed by
+    ``up_fuse_weights`` from raw weights of scale 0.2, as the card tests
+    draw them."""
+    rng = np.random.default_rng(200 + c)
+    half = c // 2
+    raw = [(rng.standard_normal(s) * 0.2).astype(np.float32) for s in ((c, 2, 2, half), (2, 2, half), (c, half))]
+    uw = fused_msab.up_fuse_weights(*(torch.from_numpy(t) for t in raw))
+    fea = (rng.standard_normal((ROWS, c)) * 0.5).astype(np.float32)
+    skip = (rng.standard_normal((ROWS, half)) * 0.5).astype(np.float32)
+    return fea, skip, uw.wc[1, 0].numpy(), uw.wskip.numpy()
+
+
+def _up_fuse_error(c: int, passes: int = 3) -> float:
+    """The composed product as ``up_fuse_kernel`` sums it: fea by wc in
+    slices of ``UP_FEA_SLICE`` rows, then skip by wskip in slices of 32,
+    each slice added into the float32 result apart; against float64."""
+    fea, skip, wc, wskip = _up_fuse_operands(c)
+    got = kernel_product(fea, wc, fused_msab.UP_FEA_SLICE[c], passes)
+    for s0 in range(0, skip.shape[1], 32):
+        got = got + kernel_product(skip[:, s0:s0 + 32], wskip[s0:s0 + 32], 32, passes)
+    want = fea.astype(np.float64) @ wc.astype(np.float64) + skip.astype(np.float64) @ wskip.astype(np.float64)
+    return float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("c", [62, 124])
+def test_up_fuse_3xtf32_within_the_card_bar(c):
+    """Inner dimensions 93 and 186 (C + C/2): within the card tests' 1e-4
+    of the float64 product."""
+    assert c + c // 2 in (93, 186)
+    assert _up_fuse_error(c) <= TOL
+
+
+def test_up_fuse_one_tf32_pass_misses_the_bar():
+    one_pass = _up_fuse_error(124, passes=1)
+    assert one_pass > TOL
+    assert _up_fuse_error(124) < one_pass / 20

@@ -84,16 +84,27 @@ def test_uv_ksize_and_taps_match_jax(sigma):
     np.testing.assert_array_equal(tblur.uv_taps(sigma, "cpu").numpy(), jblur.gaussian_kernel_1d(k, sigma))
 
 
-def test_tile_rows_fit_and_raise():
-    """The H100 allows 232448 bytes per block: ksize 37 fits with 32-row
-    tiles at C=3 and with 8-row tiles at C=8; far larger kernels raise."""
+@pytest.mark.parametrize("channels", [1, 3, 8])
+def test_tile_rows_fit_and_raise(channels):
+    """The H100 allows 232448 bytes per block: the streaming block fits at
+    every ksize of 3..37 with 1, 3 or 8 channels (about 49 KB at C = 3,
+    k = 19), and kernels far wider raise naming their ksize."""
     limit = 232448
-    assert F.tile_rows(3, 1, limit) == 32
-    assert F.tile_rows(37, 3, limit) == 32
-    assert F.tile_rows(37, 8, limit) == 8
-    assert F.smem_bytes(37, 8, 8) <= limit < F.smem_bytes(37, 8, 16)
-    with pytest.raises(ValueError, match="ksize 121"):
-        F.tile_rows(121, 3, limit)
+    for k in range(3, 39, 2):
+        assert F.block_smem(k, channels, limit) == F.smem_bytes(k, channels) <= limit
+    assert F.smem_bytes(19, 3) == 49856
+    far = {1: 801, 3: 301, 8: 121}[channels]
+    with pytest.raises(ValueError, match=f"ksize {far}"):
+        F.block_smem(far, channels, limit)
+
+
+def test_run_rows():
+    """Runs of 128 rows for a 1080p batch of 3 channels; shorter ones keep
+    16 warps per SM on fewer channels and smaller frames, down to 16 rows."""
+    assert F.run_rows(3, 1080, 1920, 3) == F.run_rows(4, 1080, 1920, 3) == 128
+    assert F.run_rows(3, 1080, 1920, 1) == 64 and F.run_rows(1, 1080, 1920, 3) == 64
+    assert F.run_rows(4, 272, 480, 3) == F.run_rows(1, 64, 96, 1) == 16
+    assert all(r % F.GROUP == 0 for r in F.RUN_ROWS)
 
 
 def test_rejects_bad_operands():
