@@ -10,152 +10,355 @@
 // Numerics: accurate powf and IEEE division (built without
 // --use_fast_math), float32 accumulation. The plain PyTorch versions in
 // ops/fused_nonuv.py compute the same function; kernels agree with them to
-// <= 1 uint8 LSB.
+// <= 1 uint8 LSB. iso_kernel and streak_kernel take the sRGB curves as
+// tables (srgb.cuh): a 256-entry decode table per block, bit for bit the
+// powf curve, and the encode by exact thresholds, equal to the powf encode
+// at every float. Its device table is made once per device by
+// av_encode_table (ops/fused_nonuv.py:encode_table) and passed to both.
 //
 // C interface (loaded with ctypes): every entry point takes raw device
 // pointers and the stream, launches on that stream without synchronising,
 // allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma_tf32.cuh"
+#include "srgb.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// Shared helpers
-// ---------------------------------------------------------------------------
+using srgb::clamp01;
+using srgb::encode_u8;
+using srgb::linearize;
+using srgb::load_scaled;
 
-__device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+__host__ __device__ constexpr size_t align16(size_t bytes) { return (bytes + 15) & ~static_cast<size_t>(15); }
 
-// IEC 61966-2-1 EOCF, sRGB [0,1] -> linear.
-__device__ __forceinline__ float linearize(float f) {
-  return f <= 0.04045f ? f / 12.92f : powf((f + 0.055f) / 1.055f, 2.4f);
+// Copy chunk c (16 bytes) of a staged output row to device memory: the row
+// holds the output's bytes at [shift, shift + len), where base (16-byte
+// aligned) + shift is their destination. A chunk inside that range goes as
+// one 16-byte store, the partial first and last chunks byte by byte, so no
+// byte outside the range is written.
+__device__ __forceinline__ void store_chunk(const uint8_t* __restrict__ s_row, uint8_t* __restrict__ base,
+                                            int shift, int len, int c) {
+  const int lo = 16 * c, hi = lo + 16;
+  if (lo >= shift && hi <= shift + len) {
+    *reinterpret_cast<uint4*>(base + lo) = *reinterpret_cast<const uint4*>(s_row + lo);
+  } else {
+    for (int b = max(lo, shift); b < min(hi, shift + len); ++b) base[b] = s_row[b];
+  }
 }
 
-// clip -> linear->sRGB -> clip -> (s*255 + 0.5) truncated to uint8.
-__device__ __forceinline__ uint8_t encode_u8(float x) {
-  x = clamp01(x);
-  const float s = x <= 0.0031308f ? 12.92f * x : 1.055f * powf(x, 0.4166666666666667f) - 0.055f;
-  return static_cast<uint8_t>(clamp01(s) * 255.0f + 0.5f);
+// The 16-byte-aligned start of a span and the span's offset from it.
+__device__ __forceinline__ const unsigned char* aligned_start(const void* p, int* shift) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  *shift = static_cast<int>(a & 15);
+  return reinterpret_cast<const unsigned char*>(a & ~static_cast<uintptr_t>(15));
 }
-
-__device__ __forceinline__ float load_scaled(uint8_t v, float scale) {
-  return clamp01(static_cast<float>(v) * scale);
-}
-__device__ __forceinline__ float load_scaled(float v, float scale) { return clamp01(v * scale); }
 
 // ---------------------------------------------------------------------------
 // Kernel 1: isotropic blur species (dog, wolf, lion, ... and the cat).
 //
 // Replaces animal_vision_tpu/ops/fused_nonuv.py:_iso_kernel (reached through
-// fused_matrix_blur / fused_iso_u8).
+// fused_matrix_blur / fused_iso_u8). The TPU kernel folds the W blur, the
+// mix and the borders into banded MXU matrices; on Hopper that band is
+// mostly zeros (29 taps in a 92-pixel band at k = 29) and would need
+// 3xTF32 to keep 1 LSB, so the taps stay float32 FMAs on the SIMT units.
 //
-// Bound on this card: float32 operations. A 1080p frame moves 12 MB
-// (3.7 us at 3.35 TB/s) but the separable blur costs 12*ksize multiply-adds
-// per pixel (ksize 29 for the dog: ~350 per pixel), plus six powf.
-//
-// Design: one block per 64 x 32 output tile. The tile and an R-pixel halo
-// on every side are loaded once into shared memory, already scaled,
-// clipped, linearized and colour-mixed (border pixels through general
-// reflect-101). The horizontal pass runs shared->shared over all halo rows,
-// the vertical pass shared->registers, then encode and store. Each input
-// byte is read about (1 + 2R/64)(1 + 2R/32) times (L2 serves the repeats);
-// the halo rows' linearize is recomputed per tile.
+// Bound on this card: float32 operations. A 1080p frame moves 12 MB (3.7 us
+// at 3.35 TB/s), but the separable blur costs 2 x 3 x ksize multiply-adds
+// per pixel (k = 29 for the dog: 174) against 6 bytes; three powf per
+// staged pixel and per output element, per-pixel divisions and reflections,
+// 1-byte loads and one output per thread would cost more than that. This
+// design feeds the FMA units instead:
+// - One block per (frame, strip of 64 output columns, run of `rows` output
+//   rows; ops/fused_nonuv.py:iso_run_rows, 128 on a 1080p batch). It walks
+//   down its run 8 rows per step with one barrier per step. Input row spans
+//   come in by 16-byte cp.async into a ring of kIsoStages groups: the
+//   16-byte-aligned superset of each span's bytes, read from its offset.
+// - Each staged pixel is decoded (uint8: the block's 256-entry table;
+//   float32 frames, the cat: linearize by powf) and mixed once, into a
+//   float span of 64 + kp pixels (kp: ksize rounded up to 4; the extra
+//   taps are zero). Column sources come from a per-block table (reflect101
+//   of each span column, clamped into the staged range); rows take
+//   reflect101 only outside the frame. No inner loop divides.
+// - The W pass runs into a ring of W-pass rows and the H pass from that
+//   ring, as in csrc/fused_blur.cu: each thread computes 8 neighbouring
+//   outputs (8 pixels of one channel, then 8 rows of one element) from a
+//   register window, taps 4 per 16-byte shared load, in tap order t =
+//   0..k-1. The H pass of a group runs a step after the W pass of its last
+//   rows, so one barrier per step covers both rings.
+// - Encode by thresholds into a shared output row, placed at the
+//   destination's offset within 16 bytes, then 16-byte stores.
+// 192 threads (64 pixels x 3 channels: one W-pass and one H-pass unit
+// each per step), about 71 KB of shared memory at k = 29 (uint8). For
+// float32 frames the powf decode of each staged pixel takes about half of
+// the time (PERF.md, section 6).
 // ---------------------------------------------------------------------------
 
-constexpr int kIsoTx = 64;   // output tile width, pixels
-constexpr int kIsoTy = 32;   // output tile height, rows
-constexpr int kIsoThreads = 256;
-constexpr int kIsoMaxTaps = 55;  // params hold 9 matrix + ksize tap floats
-constexpr int kIsoParams = 64;
+constexpr int kIsoTileW = 64;     // output strip width, pixels
+constexpr int kIsoGroup = 8;      // rows per step, and outputs per thread in each pass
+constexpr int kIsoStages = 4;     // staged input groups in the ring
+constexpr int kIsoThreads = 192;  // 64 pixels x 3 channels
+constexpr int kIsoRow = kIsoTileW * 3;     // floats per W-pass row, bytes per output row
+constexpr int kIsoOutPitch = kIsoRow + 16;  // a staged output row and its 16-byte offset
+constexpr int kIsoMaxTaps = 55;
 
-size_t iso_smem_bytes(int r) {
-  const size_t in_w = kIsoTx + 2 * r, in_h = kIsoTy + 2 * r;
-  return sizeof(float) * (kIsoParams + in_h * in_w * 3 + in_h * kIsoTx * 3);
+__host__ __device__ constexpr int iso_taps_padded(int ksize) { return (ksize + 3) & ~3; }
+__host__ __device__ constexpr int iso_span(int ksize) { return kIsoTileW + iso_taps_padded(ksize); }
+// Groups an output group reaches below itself: its rows 8g .. 8g + 7 + kp - 1.
+__host__ __device__ constexpr int iso_lag(int ksize) { return (iso_taps_padded(ksize) + 6) / kIsoGroup; }
+// W-pass ring: the lag + 1 groups an H pass reads and the group the W pass writes.
+__host__ __device__ constexpr int iso_ring_rows(int ksize) { return kIsoGroup * (iso_lag(ksize) + 2); }
+
+// Byte offsets of a block's shared memory; `elem` is 1 (uint8 frames) or 4.
+struct IsoLayout {
+  int kp, span, ring, pitch;  // pitch: bytes per staged input row
+  size_t taps, lut, enc, fspan, wring, col, shift, raw, out, total;
+};
+
+__host__ __device__ inline IsoLayout iso_layout(int ksize, int elem) {
+  IsoLayout l{};
+  l.kp = iso_taps_padded(ksize);
+  l.span = iso_span(ksize);
+  l.ring = iso_ring_rows(ksize);
+  l.pitch = 16 * ((l.span * 3 * elem + 15) / 16 + 1);
+  size_t o = 0;
+  l.taps = o;  o += align16(4 * l.kp);
+  l.lut = o;   o += align16(4 * srgb::kLevels);
+  l.enc = o;   o += align16(srgb::kBlockEncBytes);
+  l.fspan = o; o += align16(4 * 2 * kIsoGroup * l.span * 3);
+  l.wring = o; o += align16(4 * static_cast<size_t>(l.ring) * kIsoRow);
+  l.col = o;   o += align16(4 * l.span);
+  l.shift = o; o += align16(4 * kIsoStages * kIsoGroup);
+  l.raw = o;   o += align16(static_cast<size_t>(kIsoStages) * kIsoGroup * l.pitch);
+  l.out = o;   o += align16(2 * kIsoGroup * kIsoOutPitch);
+  l.total = o;
+  return l;
+}
+
+// acc[j] = sum_t in[t + j] taps[t] for j < kIsoGroup, t = 0..kp-1 in order
+// (kp a multiple of 4), the taps read 4 at a time; load(q) returns in[4q ..
+// 4q + 3], so the window of inputs stays in registers.
+template <typename Load>
+__device__ __forceinline__ void conv_run(const float4* __restrict__ taps4, int kp, Load load,
+                                         float (&acc)[kIsoGroup]) {
+  float win[kIsoGroup + 4];
+  auto put = [&](int m, float4 v) {
+    win[m] = v.x;
+    win[m + 1] = v.y;
+    win[m + 2] = v.z;
+    win[m + 3] = v.w;
+  };
+#pragma unroll
+  for (int m = 0; m < kIsoGroup; m += 4) put(m, load(m / 4));
+#pragma unroll
+  for (int j = 0; j < kIsoGroup; ++j) acc[j] = 0.f;
+  for (int q = 0; q < kp / 4; ++q) {
+    const float4 t4 = taps4[q];
+    const float tp[4] = {t4.x, t4.y, t4.z, t4.w};
+    put(kIsoGroup, load(q + kIsoGroup / 4));
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int j = 0; j < kIsoGroup; ++j) acc[j] = fmaf(win[m + j], tp[m], acc[j]);
+#pragma unroll
+    for (int m = 0; m < kIsoGroup; ++m) win[m] = win[m + 4];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float iso_decode(T v, float sc, const float* __restrict__ s_lut) {
+  if constexpr (sizeof(T) == 1) {
+    return s_lut[v];
+  } else {
+    return linearize(load_scaled(v, sc));
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kIsoThreads)
 iso_kernel(const T* __restrict__ img, uint8_t* __restrict__ out, const float* __restrict__ scale,
-           const float* __restrict__ params, int ksize, int h, int w) {
-  extern __shared__ float smem[];
-  const int r = ksize / 2;
-  const int in_w = kIsoTx + 2 * r;
-  const int in_h = kIsoTy + 2 * r;
-  float* s_par = smem;                          // mat[9] then taps[ksize]
-  float* s_in = smem + kIsoParams;              // (in_h, in_w, 3) linear, mixed
-  float* s_hz = s_in + in_h * in_w * 3;         // (in_h, kIsoTx, 3) after the W pass
+           const float* __restrict__ params, const float* __restrict__ enc, int ksize, int rows, int h, int w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const IsoLayout L = iso_layout(ksize, sizeof(T));
+  float* s_taps = reinterpret_cast<float*>(smem + L.taps);   // kp, zero past ksize
+  float* s_lut = reinterpret_cast<float*>(smem + L.lut);     // 256 (uint8 frames)
+  const srgb::EncTable et = srgb::enc_table_at(smem + L.enc);
+  float* s_fspan = reinterpret_cast<float*>(smem + L.fspan);  // (2, kIsoGroup, span, 3) decoded, mixed
+  float* s_ring = reinterpret_cast<float*>(smem + L.wring);   // (ring, 64 x 3) W-pass rows
+  int* s_col = reinterpret_cast<int*>(smem + L.col);          // span: element offset of each column's source
+  int* s_shift = reinterpret_cast<int*>(smem + L.shift);      // (kIsoStages, kIsoGroup): staged row offsets, bytes
+  unsigned char* s_raw = smem + L.raw;                        // (kIsoStages, kIsoGroup, pitch) input bytes
+  uint8_t* s_out = smem + L.out;                              // (2, kIsoGroup, kIsoOutPitch) encoded rows
 
-  const int n = blockIdx.z;
-  const int x0 = blockIdx.x * kIsoTx;
-  const int y0 = blockIdx.y * kIsoTy;
-  for (int i = threadIdx.x; i < 9 + ksize; i += blockDim.x) s_par[i] = params[i];
-  __syncthreads();
-
+  const int tid = threadIdx.x, n = blockIdx.z;
+  const int r = ksize / 2, kp = L.kp, span = L.span, ring = L.ring, pitch = L.pitch;
+  const int lag = ring / kIsoGroup - 2;
+  const int x0 = blockIdx.x * kIsoTileW, y0 = blockIdx.y * rows;
+  const int out_rows = min(rows, h - y0);
+  const int groups = (out_rows + kIsoGroup - 1) / kIsoGroup;
+  const int in_groups = groups + lag;
+  const int cols = min(kIsoTileW, w - x0) * 3;  // output bytes per row
   const float sc = scale[n];
-  const float m00 = s_par[0], m01 = s_par[1], m02 = s_par[2];
-  const float m10 = s_par[3], m11 = s_par[4], m12 = s_par[5];
-  const float m20 = s_par[6], m21 = s_par[7], m22 = s_par[8];
-  const float* taps = s_par + 9;
+  // The staged columns: every source an output of this strip reads.
+  const int lo = max(0, x0 - r), hi = min(w, x0 - r + span);
+
+  for (int i = tid; i < kp; i += kIsoThreads) s_taps[i] = i < ksize ? params[9 + i] : 0.f;
+  srgb::fill_tables(sizeof(T) == 1 ? s_lut : nullptr, et, enc, sc);
+  for (int lx = tid; lx < span; lx += kIsoThreads) {
+    s_col[lx] = (min(max(reflect101(x0 - r + lx, w), lo), hi - 1) - lo) * 3;
+  }
+  float m[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) m[i] = params[i];
+
   const T* src = img + static_cast<size_t>(n) * h * w * 3;
+  // Input rows 8q .. 8q + 7 of the run (global y0 - r + 8q + i) into stage q % kIsoStages.
+  const int chunks = pitch / 16;
+  auto stage = [&](int q) {
+    unsigned char* dst = s_raw + (q % kIsoStages) * kIsoGroup * pitch;
+    for (int idx = tid; idx < kIsoGroup * chunks; idx += kIsoThreads) {
+      const int i = idx / chunks, c = idx - i * chunks;
+      int gy = y0 - r + kIsoGroup * q + i;
+      if (static_cast<unsigned>(gy) >= static_cast<unsigned>(h)) gy = reflect101(gy, h);
+      const T* row = src + static_cast<size_t>(gy) * w * 3;
+      int shift;
+      const unsigned char* base = aligned_start(row + lo * 3, &shift);
+      if (c == 0) s_shift[(q % kIsoStages) * kIsoGroup + i] = shift;
+      if (base + 16 * c < reinterpret_cast<const unsigned char*>(row + hi * 3)) {
+        tc::cp_async<16>(dst + i * pitch + 16 * c, base + 16 * c, true);
+      }
+    }
+  };
 
-  for (int i = threadIdx.x; i < in_h * in_w; i += blockDim.x) {
-    const int ly = i / in_w;
-    const int lx = i - ly * in_w;
-    const int gy = reflect101(y0 - r + ly, h);
-    const int gx = reflect101(x0 - r + lx, w);
-    const T* p = src + (static_cast<size_t>(gy) * w + gx) * 3;
-    const float l0 = linearize(load_scaled(p[0], sc));
-    const float l1 = linearize(load_scaled(p[1], sc));
-    const float l2 = linearize(load_scaled(p[2], sc));
-    float* d = s_in + i * 3;
-    d[0] = m00 * l0 + m01 * l1 + m02 * l2;
-    d[1] = m10 * l0 + m11 * l1 + m12 * l2;
-    d[2] = m20 * l0 + m21 * l1 + m22 * l2;
+  // Decode and mix group q into s_fspan[q % 2]: this thread's pixels
+  // (row i, column lx) are units tid, tid + 192, ... of 8 x span.
+  constexpr int kMaxDec = (kIsoGroup * (kIsoTileW + ((kIsoMaxTaps + 3) & ~3)) + kIsoThreads - 1) / kIsoThreads;
+  int dec_i[kMaxDec], dec_lx[kMaxDec];
+#pragma unroll
+  for (int j = 0; j < kMaxDec; ++j) {
+    const int u = tid + j * kIsoThreads;
+    dec_i[j] = u / span;
+    dec_lx[j] = u - dec_i[j] * span;
+  }
+  auto decode = [&](int q) {
+    const unsigned char* raw = s_raw + (q % kIsoStages) * kIsoGroup * pitch;
+    const int* shifts = s_shift + (q % kIsoStages) * kIsoGroup;
+    float* f = s_fspan + (q % 2) * kIsoGroup * span * 3;
+#pragma unroll
+    for (int j = 0; j < kMaxDec; ++j) {
+      const int i = dec_i[j], lx = dec_lx[j];
+      if (i >= kIsoGroup) break;
+      const T* p = reinterpret_cast<const T*>(raw + i * pitch + shifts[i]) + s_col[lx];
+      const float l0 = iso_decode<T>(p[0], sc, s_lut);
+      const float l1 = iso_decode<T>(p[1], sc, s_lut);
+      const float l2 = iso_decode<T>(p[2], sc, s_lut);
+      float* d = f + (i * span + lx) * 3;
+      d[0] = m[0] * l0 + m[1] * l1 + m[2] * l2;
+      d[1] = m[3] * l0 + m[4] * l1 + m[5] * l2;
+      d[2] = m[6] * l0 + m[7] * l1 + m[8] * l2;
+    }
+  };
+
+  // This thread's W-pass unit (row i of the group, run of 8 pixels,
+  // channel) and H-pass element.
+  const int wi = tid / 24, wrun = (tid % 24) / 3, wch = tid % 3;
+  const int w_in = wi * span * 3 + kIsoGroup * wrun * 3 + wch;
+  const int w_out = wi * kIsoRow + kIsoGroup * wrun * 3 + wch;
+  const float4* taps4 = reinterpret_cast<const float4*>(s_taps);
+  uint8_t* dst = out + ((static_cast<size_t>(n) * h + y0) * w + x0) * 3;
+
+  // Output group g's encoded rows, each at its destination's offset within 16 bytes.
+  auto store = [&](int g) {
+    const uint8_t* so = s_out + (g % 2) * kIsoGroup * kIsoOutPitch;
+    constexpr int kChunks = kIsoOutPitch / 16;
+    const int left = min(kIsoGroup, out_rows - kIsoGroup * g);
+    if (tid < kIsoGroup * kChunks) {
+      const int j = tid / kChunks, c = tid % kChunks;
+      if (j < left) {
+        int shift;
+        uint8_t* base = const_cast<uint8_t*>(aligned_start(dst + static_cast<size_t>(kIsoGroup * g + j) * w * 3,
+                                                           &shift));
+        if (16 * c < shift + cols) store_chunk(so + j * kIsoOutPitch, base, shift, cols, c);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int q = 0; q < kIsoStages - 1; ++q) {
+    if (q < in_groups) stage(q);
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait<kIsoStages - 2>();
+  __syncthreads();  // tables, column sources and group 0 are in place
+  decode(0);
+
+  // Step s: decode group s + 1, W pass of group s, H pass of group s - lag
+  // - 1 (its rows were W-passed in earlier steps), store group s - lag - 2.
+  for (int s = 0; s <= in_groups; ++s) {
+    tc::cp_async_wait<kIsoStages - 3>();
+    __syncthreads();  // group s + 1 landed; every thread is done with step s - 1
+    if (s + kIsoStages - 1 < in_groups) stage(s + kIsoStages - 1);
+    tc::cp_async_commit();
+    if (s + 1 < in_groups) decode(s + 1);
+
+    if (s < in_groups) {
+      const float* p = s_fspan + (s % 2) * kIsoGroup * span * 3 + w_in;
+      float acc[kIsoGroup];
+      conv_run(taps4, kp, [&](int g4) {
+        const float* x = p + 12 * g4;
+        return make_float4(x[0], x[3], x[6], x[9]);
+      }, acc);
+      float* wr = s_ring + ((kIsoGroup * s) % ring) * kIsoRow + w_out;
+#pragma unroll
+      for (int j = 0; j < kIsoGroup; ++j) wr[j * 3] = acc[j];
+    }
+
+    const int g = s - lag - 1;
+    if (g >= 0) {
+      // Output row y0 + 8g + j is the sum over W-pass rows 8g + j + t. Ring
+      // rows come in aligned groups of 4, so a group never wraps.
+      const int base = (kIsoGroup * g) % ring;
+      float acc[kIsoGroup];
+      conv_run(taps4, kp, [&](int g4) {
+        int row = base + 4 * g4;
+        if (row >= ring) row -= ring;
+        const float* x = s_ring + row * kIsoRow + tid;
+        return make_float4(x[0], x[kIsoRow], x[2 * kIsoRow], x[3 * kIsoRow]);
+      }, acc);
+      uint8_t* so = s_out + (g % 2) * kIsoGroup * kIsoOutPitch + tid;
+#pragma unroll
+      for (int j = 0; j < kIsoGroup; ++j) {
+        const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(
+                              dst + static_cast<size_t>(kIsoGroup * g + j) * w * 3) & 15);
+        so[j * kIsoOutPitch + shift] = srgb::encode_u8_thr(acc[j], et);
+      }
+    }
+    if (g >= 1) store(g - 1);
   }
   __syncthreads();
-
-  // W pass: element e = 3*j + c of halo row ly.
-  const int row_elems = kIsoTx * 3;
-  for (int i = threadIdx.x; i < in_h * row_elems; i += blockDim.x) {
-    const int ly = i / row_elems;
-    const int e = i - ly * row_elems;
-    const float* s = s_in + ly * in_w * 3 + e;
-    float acc = 0.0f;
-    for (int t = 0; t < ksize; ++t) acc += s[3 * t] * taps[t];
-    s_hz[i] = acc;
-  }
-  __syncthreads();
-
-  // H pass, encode, store (the ragged right and bottom edges are masked).
-  uint8_t* dst = out + static_cast<size_t>(n) * h * w * 3;
-  for (int i = threadIdx.x; i < kIsoTy * row_elems; i += blockDim.x) {
-    const int ly = i / row_elems;
-    const int e = i - ly * row_elems;
-    const int gy = y0 + ly;
-    const int gx = x0 + e / 3;
-    if (gy >= h || gx >= w) continue;
-    const float* s = s_hz + ly * row_elems + e;
-    float acc = 0.0f;
-    for (int t = 0; t < ksize; ++t) acc += s[t * row_elems] * taps[t];
-    dst[(static_cast<size_t>(gy) * w + x0) * 3 + e] = encode_u8(acc);
-  }
+  store(groups - 1);
 }
 
 template <typename T>
-int launch_iso(const void* img, void* out, const void* scale, const void* params, int ksize,
-               int n, int h, int w, void* stream) {
-  if (ksize < 1 || ksize > kIsoMaxTaps || (ksize & 1) == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = iso_smem_bytes(ksize / 2);
+int launch_iso(const void* img, void* out, const void* scale, const void* params, const void* enc, int ksize,
+               int rows, int n, int h, int w, void* stream) {
+  if (ksize < 1 || ksize > kIsoMaxTaps || (ksize & 1) == 0 || rows < kIsoGroup || rows % kIsoGroup != 0 ||
+      n < 1 || n > 65535 || h < 1 || w < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = iso_layout(ksize, sizeof(T)).total;
   cudaError_t err = cudaFuncSetAttribute(iso_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((w + kIsoTx - 1) / kIsoTx, (h + kIsoTy - 1) / kIsoTy, n);
+  const dim3 grid((w + kIsoTileW - 1) / kIsoTileW, (h + rows - 1) / rows, n);
   iso_kernel<T><<<grid, kIsoThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(img), static_cast<uint8_t*>(out), static_cast<const float*>(scale),
-      static_cast<const float*>(params), ksize, h, w);
+      static_cast<const float*>(params), static_cast<const float*>(enc), ksize, rows, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,69 +370,253 @@ int launch_iso(const void* img, void* out, const void* scale, const void* params
 // tail _apply_mix_chroma_encode), reached through _streak_pallas /
 // fused_streak_u8 / fused_streak_tab_u8.
 //
-// Bound on this card: float32 operations, close to the byte bound. Per
-// pixel 3 channels x (1 + 2r) multiply-adds of the combined per-row kernel
-// (r <= 16), a 3x3 mix, six powf; 6 bytes per pixel of traffic.
-//
-// Design: one block per image row. The row plus an r-pixel reflect-101
-// halo is staged once in shared memory, linearized (a 1920-px row is 23 KB
-// of float32), with its row of the half-table `tab` and its 3x3 `mix`.
-// Each thread then produces whole pixels: paired symmetric taps
-// tab[0]*x[j] + sum_d tab[d]*(x[j-d] + x[j+d]) per channel, the per-row
-// mix, chroma toward the pixel mean if asked, encode. Every input byte is
-// read from device memory once.
+// Bound on this card: bytes by the yardstick (per pixel 3 channels x (1 +
+// 3 r_y) operations of the row's combined kernel, r_y <= 15 on the path, a
+// 3x3 mix and the curves, against 6 bytes), but in practice instruction
+// issue: removing the taps, the encode or the decode each saves a part of
+// the time (PERF.md, section 6). One block per image row, six powf per pixel, a /3
+// and a reflect101 per staged element, three shared loads per tap pair and
+// 1-byte stores at a stride of 3 would each cost more. This design:
+// - As many blocks as the card holds at once (ops/fused_nonuv.py:
+//   streak_blocks; registers capped at 64 so that four share an SM), block
+//   b taking rows n h b / B .. n h (b + 1) / B - 1 of the batch, so all
+//   finish together; a block builds its decode table once and again where
+//   its rows open a frame. Rows come in by 16-byte cp.async one row ahead
+//   (the 16-byte-aligned superset of the row's bytes, so rows that start
+//   off 16 bytes, as at W = 1283, take the same path from their offset),
+//   with their rows of `tab` and `mix`.
+// - Decode by table, 4 bytes per thread from one 32-bit shared load into
+//   one 16-byte store (the float row is placed so that they align);
+//   reflect101 only for the 2r halo pixels.
+// - Each thread computes kStreakPix = 9 neighbouring pixels: per channel a
+//   register window grows by one pixel on each side per tap distance d, so
+//   each pair (x[j-d] + x[j+d]) tab[d] costs two shared loads per 9
+//   outputs; the loop stops at the row's own radius (the zero taps past it
+//   add nothing). Lanes 27 floats apart hit distinct banks. Sum order as
+//   before: tab[0] x[j], then d = 1..r_y. Radii above kStreakWindow take
+//   the same sums pixel by pixel.
+// - Mix, chroma, encode by thresholds into a shared output row at the
+//   destination's offset within 16 bytes, then 16-byte stores.
+// 256 threads, two barriers per row, about 49 KB of shared memory at W =
+// 1920.
 // ---------------------------------------------------------------------------
 
 constexpr int kStreakThreads = 256;
+constexpr int kStreakPix = 9;      // neighbouring pixels per thread (odd: bank-conflict free)
+constexpr int kStreakStages = 2;   // staged input rows
+constexpr int kStreakBlocksPerSM = 4;  // registers capped at 64 so that four blocks share an SM
+constexpr int kStreakWindow = 16;  // the largest radius of the register-window path
 
-size_t streak_smem_bytes(int r, int w) {
-  return sizeof(float) * ((static_cast<size_t>(w) + 2 * r) * 3 + (r + 1) + 9);
+struct StreakLayout {
+  int pitch, fcount, tcount;  // staged row bytes, float row floats, staged tab + mix floats
+  size_t lut, enc, rad, shift, tabs, fbuf, raw, out, total;
+};
+
+__host__ __device__ inline StreakLayout streak_layout(int r, int w) {
+  StreakLayout l{};
+  l.pitch = 16 * ((3 * w + 15) / 16 + 1);
+  l.fcount = 3 * (w + 2 * r + kStreakPix - 1) + 4;  // the last thread's window overhangs by up to 8 pixels
+  l.tcount = r + 1 + 9;
+  size_t o = 0;
+  l.lut = o;   o += align16(4 * srgb::kLevels);
+  l.enc = o;   o += align16(srgb::kBlockEncBytes);
+  l.rad = o;   o += align16(4 * kStreakStages);
+  l.shift = o; o += align16(4 * kStreakStages);
+  l.tabs = o;  o += align16(4 * static_cast<size_t>(kStreakStages) * l.tcount);
+  l.fbuf = o;  o += align16(4 * static_cast<size_t>(l.fcount));
+  l.raw = o;   o += align16(static_cast<size_t>(kStreakStages) * l.pitch);
+  l.out = o;   o += align16(2 * static_cast<size_t>(l.pitch));
+  l.total = o;
+  return l;
 }
 
-__global__ void __launch_bounds__(kStreakThreads)
+// acc[m] = x[j0 + m] tab[0] + sum_{d = 1..ry} (x[j0 + m - d] + x[j0 + m + d]) tab[d]
+// for one channel; x[3 i] is pixel j0 + i. The roundings are spelled out
+// (the product, then one fma per pair, d = 1..ry), so that no contraction
+// the compiler picks for the unrolled window changes a bit.
+template <int RMAX>
+__device__ __forceinline__ void streak_taps(const float* __restrict__ x, const float* __restrict__ tab, int ry,
+                                            float (&acc)[kStreakPix]) {
+  if constexpr (RMAX > 0) {
+    float win[kStreakPix + 2 * RMAX];  // win[RMAX + i] = pixel j0 + i
+#pragma unroll
+    for (int i = 0; i < kStreakPix; ++i) win[RMAX + i] = x[3 * i];
+    const float t0 = tab[0];
+#pragma unroll
+    for (int i = 0; i < kStreakPix; ++i) acc[i] = __fmul_rn(win[RMAX + i], t0);
+#pragma unroll
+    for (int d = 1; d <= RMAX; ++d) {
+      if (d > ry) break;
+      win[RMAX - d] = x[-3 * d];
+      win[RMAX + kStreakPix - 1 + d] = x[3 * (kStreakPix - 1 + d)];
+      const float td = tab[d];
+#pragma unroll
+      for (int i = 0; i < kStreakPix; ++i) acc[i] = fmaf(win[RMAX + i - d] + win[RMAX + i + d], td, acc[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kStreakPix; ++i) {
+      const float* p = x + 3 * i;
+      float a = __fmul_rn(p[0], tab[0]);
+      for (int d = 1; d <= ry; ++d) a = fmaf(p[-3 * d] + p[3 * d], tab[d], a);
+      acc[i] = a;
+    }
+  }
+}
+
+template <int RMAX>
+__global__ void __launch_bounds__(kStreakThreads, kStreakBlocksPerSM)
 streak_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, const float* __restrict__ scale,
-              const float* __restrict__ tab, const float* __restrict__ mix, int r, float keep,
-              int use_chroma, int h, int w) {
-  extern __shared__ float smem[];
-  const int y = blockIdx.x;
-  const int n = blockIdx.z;
-  float* s_lin = smem;                            // (w + 2r, 3)
-  float* s_tab = s_lin + (w + 2 * r) * 3;         // r + 1
-  float* s_mix = s_tab + (r + 1);                 // 9
+              const float* __restrict__ tab, const float* __restrict__ mix, const float* __restrict__ enc, int r,
+              float keep, int use_chroma, int n, int h, int w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const StreakLayout L = streak_layout(r, w);
+  float* s_lut = reinterpret_cast<float*>(smem + L.lut);
+  const srgb::EncTable et = srgb::enc_table_at(smem + L.enc);
+  int* s_rad = reinterpret_cast<int*>(smem + L.rad);      // per stage: the row's own radius
+  int* s_shift = reinterpret_cast<int*>(smem + L.shift);  // per stage: the staged row's offset, bytes
+  float* s_tabs = reinterpret_cast<float*>(smem + L.tabs);  // per stage: tab row (r + 1), mix row (9)
+  float* s_fbuf = reinterpret_cast<float*>(smem + L.fbuf);  // the decoded row with its halo
+  unsigned char* s_raw = smem + L.raw;                      // (kStreakStages, pitch) input bytes
+  uint8_t* s_out = smem + L.out;                            // (2, pitch) encoded rows
 
-  const float sc = scale[n];
-  const size_t row_off = (static_cast<size_t>(n) * h + y) * w * 3;
-  const uint8_t* src = img + row_off;
-  for (int i = threadIdx.x; i < (w + 2 * r) * 3; i += blockDim.x) {
-    const int px = i / 3;
-    const int c = i - px * 3;
-    s_lin[i] = linearize(load_scaled(src[reflect101(px - r, w) * 3 + c], sc));
+  // This block's rows g0 .. g1 - 1 of the batch's n h rows (frame g / h,
+  // row g % h; frames are contiguous, so row g starts at g 3w).
+  const int tid = threadIdx.x;
+  const long long total = static_cast<long long>(n) * h;
+  const long long g0 = total * blockIdx.x / gridDim.x;
+  const int nrows = static_cast<int>(total * (blockIdx.x + 1) / gridDim.x - g0);
+  const int row_bytes = 3 * w;
+  int frame = static_cast<int>(g0 / h);
+  srgb::fill_tables(s_lut, et, enc, scale[frame]);
+
+  const uint8_t* src = img + g0 * row_bytes;
+  uint8_t* dst = out + g0 * row_bytes;
+  // Row s of the run, with its tables, into stage s % kStreakStages.
+  auto stage = [&](int s) {
+    const int st = s % kStreakStages;
+    int shift;
+    const unsigned char* base = aligned_start(src + static_cast<size_t>(s) * row_bytes, &shift);
+    if (tid == 0) s_shift[st] = shift;
+    const int chunks = (shift + row_bytes + 15) / 16;
+    for (int c = tid; c < chunks; c += kStreakThreads) {
+      tc::cp_async<16>(s_raw + st * L.pitch + 16 * c, base + 16 * c, true);
+    }
+    const int y = static_cast<int>((g0 + s) % h);
+    for (int i = tid; i < L.tcount; i += kStreakThreads) {
+      const float* from = i <= r ? tab + static_cast<size_t>(y) * (r + 1) + i : mix + static_cast<size_t>(y) * 9 + (i - r - 1);
+      tc::cp_async<4>(s_tabs + st * L.tcount + i, from, true);
+    }
+  };
+  auto store = [&](int s) {
+    int shift;
+    uint8_t* base = const_cast<uint8_t*>(aligned_start(dst + static_cast<size_t>(s) * row_bytes, &shift));
+    const int chunks = (shift + row_bytes + 15) / 16;
+    const uint8_t* so = s_out + (s % 2) * L.pitch;
+    for (int c = tid; c < chunks; c += kStreakThreads) store_chunk(so, base, shift, row_bytes, c);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStreakStages - 1; ++s) {
+    if (s < nrows) stage(s);
+    tc::cp_async_commit();
   }
-  for (int i = threadIdx.x; i <= r; i += blockDim.x) s_tab[i] = tab[static_cast<size_t>(y) * (r + 1) + i];
-  if (threadIdx.x < 9) s_mix[threadIdx.x] = mix[static_cast<size_t>(y) * 9 + threadIdx.x];
+  for (int s = 0; s < nrows; ++s) {
+    const int st = s % kStreakStages;
+    tc::cp_async_wait<kStreakStages - 2>();
+    __syncthreads();  // row s landed; every thread is done with row s - 1
+    if (s + kStreakStages - 1 < nrows) stage(s + kStreakStages - 1);
+    tc::cp_async_commit();
+    if (s > 0) store(s - 1);
+
+    // Decode: f[j] = byte j of the row, j in [-3r, 3w + 3r), reflect-101 on
+    // the halo; f is placed so that f + 4q - shift is 16-byte aligned.
+    const unsigned char* raw = s_raw + st * L.pitch;
+    const int shift = s_shift[st];
+    float* f = s_fbuf + ((shift - 3 * r) & 3) + 3 * r;
+    const int words = (shift + row_bytes + 3) / 4;
+    for (int q = tid; q < words; q += kStreakThreads) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(raw + 4 * q);
+      const int j0 = 4 * q - shift;
+      if (j0 >= 0 && j0 + 4 <= row_bytes) {
+        *reinterpret_cast<float4*>(f + j0) =
+            make_float4(s_lut[v & 255u], s_lut[(v >> 8) & 255u], s_lut[(v >> 16) & 255u], s_lut[v >> 24]);
+      } else {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int j = j0 + b;
+          if (j >= 0 && j < row_bytes) f[j] = s_lut[(v >> (8 * b)) & 255u];
+        }
+      }
+    }
+    for (int i = tid; i < 6 * r; i += kStreakThreads) {
+      const int e = i < 3 * r ? i : row_bytes + i;  // halo element of the padded row
+      const int px = e / 3 - r, c = e - 3 * (e / 3);
+      f[e - 3 * r] = s_lut[raw[shift + reflect101(px, w) * 3 + c]];
+    }
+    const float* st_tab = s_tabs + st * L.tcount;
+    if (tid < 32) {  // the row's own radius: its last nonzero tap
+      int rad = 0;
+      for (int base = 0; base <= r; base += 32) {
+        const int d = base + tid;
+        const unsigned nz = __ballot_sync(0xffffffffu, d >= 1 && d <= r && st_tab[d] != 0.0f);
+        if (nz != 0u) rad = base + 31 - __clz(static_cast<int>(nz));
+      }
+      if (tid == 0) s_rad[st] = rad;
+    }
+    __syncthreads();  // the decoded row and its radius
+
+    if (s + 1 < nrows && (g0 + s + 1) / h != frame) {  // the next row opens a frame: its decode table
+      frame = static_cast<int>((g0 + s + 1) / h);
+      for (int v = tid; v < srgb::kLevels; v += kStreakThreads) {
+        s_lut[v] = linearize(load_scaled(static_cast<uint8_t>(v), scale[frame]));
+      }
+    }
+    const int ry = s_rad[st];
+    float mx[9];  // the row's mix
+#pragma unroll
+    for (int i = 0; i < 9; ++i) mx[i] = st_tab[r + 1 + i];
+    uint8_t* so = s_out + (s % 2) * L.pitch + static_cast<int>(reinterpret_cast<uintptr_t>(
+                                                  dst + static_cast<size_t>(s) * row_bytes) & 15);
+    for (int u = tid; u * kStreakPix < w; u += kStreakThreads) {
+      const int j0 = u * kStreakPix;
+      float a[3][kStreakPix];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) streak_taps<RMAX>(f + 3 * j0 + c, st_tab, ry, a[c]);
+#pragma unroll
+      for (int i = 0; i < kStreakPix; ++i) {
+        if (j0 + i >= w) break;
+        float o[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          o[c] = mx[3 * c] * a[0][i] + mx[3 * c + 1] * a[1][i] + mx[3 * c + 2] * a[2][i];
+        }
+        if (use_chroma) {
+          const float gray = (o[0] + o[1] + o[2]) * (1.0f / 3.0f);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) o[c] = gray + (o[c] - gray) * keep;
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) so[3 * (j0 + i) + c] = srgb::encode_u8_thr(o[c], et);
+      }
+    }
+  }
   __syncthreads();
+  if (nrows > 0) store(nrows - 1);
+}
 
-  uint8_t* dst = out + row_off;
-  for (int j = threadIdx.x; j < w; j += blockDim.x) {
-    float a[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float* p = s_lin + (j + r) * 3 + c;
-      float acc = p[0] * s_tab[0];
-      for (int d = 1; d <= r; ++d) acc += (p[-3 * d] + p[3 * d]) * s_tab[d];
-      a[c] = acc;
-    }
-    float o[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) o[c] = s_mix[3 * c] * a[0] + s_mix[3 * c + 1] * a[1] + s_mix[3 * c + 2] * a[2];
-    if (use_chroma) {
-      const float gray = (o[0] + o[1] + o[2]) * (1.0f / 3.0f);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) o[c] = gray + (o[c] - gray) * keep;
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) dst[j * 3 + c] = encode_u8(o[c]);
-  }
+template <int RMAX>
+int launch_streak(const void* img, void* out, const void* scale, const void* tab, const void* mix, const void* enc,
+                  int r, float keep, int use_chroma, int blocks, int n, int h, int w, cudaStream_t stream) {
+  const size_t smem = streak_layout(r, w).total;
+  cudaError_t err = cudaFuncSetAttribute(streak_kernel<RMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  streak_kernel<RMAX><<<blocks, kStreakThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(img), static_cast<uint8_t*>(out), static_cast<const float*>(scale),
+      static_cast<const float*>(tab), static_cast<const float*>(mix), static_cast<const float*>(enc), r, keep,
+      use_chroma, n, h, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -271,27 +658,65 @@ pointwise_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, con
 
 extern "C" {
 
-int av_iso_u8(const void* img, void* out, const void* scale, const void* params, int ksize, int n,
-              int h, int w, void* stream) {
-  return launch_iso<uint8_t>(img, out, scale, params, ksize, n, h, w, stream);
+// The device encode table (srgb::kEncTable floats) of this library's
+// encode_u8; status: 2 ints on the device, zero on entry (exceptions, and
+// counts that got two of them).
+int av_encode_table(void* enc, void* status, void* stream) {
+  return static_cast<int>(srgb::launch_encode_table(static_cast<float*>(enc), static_cast<int*>(status),
+                                                    static_cast<cudaStream_t>(stream)));
 }
 
-int av_iso_f32(const void* img, void* out, const void* scale, const void* params, int ksize, int n,
-               int h, int w, void* stream) {
-  return launch_iso<float>(img, out, scale, params, ksize, n, h, w, stream);
+// result: 2 uint64 on the device, {0, 2^64 - 1} on entry: the count of
+// float bit patterns in start .. start + count - 1 where encode_u8_thr
+// differs from encode_u8, and the first such pattern.
+int av_encode_check(const void* enc, unsigned long long start, unsigned long long count, void* result,
+                    void* stream) {
+  return static_cast<int>(srgb::launch_encode_check(static_cast<const float*>(enc), start, count,
+                                                    static_cast<unsigned long long*>(result),
+                                                    static_cast<cudaStream_t>(stream)));
 }
 
-int av_streak_u8(const void* img, void* out, const void* scale, const void* tab, const void* mix,
-                 int r, float keep, int use_chroma, int n, int h, int w, void* stream) {
-  const size_t smem = streak_smem_bytes(r, w);
-  cudaError_t err = cudaFuncSetAttribute(streak_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// Dynamic shared memory of one iso block, in bytes (elem: 1 for uint8
+// frames, 4 for float32).
+int av_iso_smem(int ksize, int elem) { return static_cast<int>(iso_layout(ksize, elem).total); }
+
+int av_iso_u8(const void* img, void* out, const void* scale, const void* params, const void* enc, int ksize,
+              int rows, int n, int h, int w, void* stream) {
+  return launch_iso<uint8_t>(img, out, scale, params, enc, ksize, rows, n, h, w, stream);
+}
+
+int av_iso_f32(const void* img, void* out, const void* scale, const void* params, const void* enc, int ksize,
+               int rows, int n, int h, int w, void* stream) {
+  return launch_iso<float>(img, out, scale, params, enc, ksize, rows, n, h, w, stream);
+}
+
+// Blocks of streak_kernel the current device holds at once for radius r and
+// width w (SMs x resident blocks per SM); 0 if a block does not fit.
+int av_streak_slots(int r, int w, int* slots) {
+  const size_t smem = streak_layout(r, w).total;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const void* fn = r <= kStreakWindow ? reinterpret_cast<const void*>(streak_kernel<kStreakWindow>)
+                                      : reinterpret_cast<const void*>(streak_kernel<0>);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kStreakThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(h, 1, n);
-  streak_kernel<<<grid, kStreakThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(img), static_cast<uint8_t*>(out), static_cast<const float*>(scale),
-      static_cast<const float*>(tab), static_cast<const float*>(mix), r, keep, use_chroma, h, w);
-  return static_cast<int>(cudaGetLastError());
+  *slots = sms * per_sm;
+  return 0;
+}
+
+// `blocks` blocks share the n h rows (at most one block per row).
+int av_streak_u8(const void* img, void* out, const void* scale, const void* tab, const void* mix, const void* enc,
+                 int r, float keep, int use_chroma, int blocks, int n, int h, int w, void* stream) {
+  if (r < 0 || blocks < 1 || n < 1 || h < 1 || w < 1 || static_cast<long long>(blocks) > static_cast<long long>(n) * h) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (r <= kStreakWindow) {
+    return launch_streak<kStreakWindow>(img, out, scale, tab, mix, enc, r, keep, use_chroma, blocks, n, h, w, s);
+  }
+  return launch_streak<0>(img, out, scale, tab, mix, enc, r, keep, use_chroma, blocks, n, h, w, s);
 }
 
 int av_pointwise_u8(const void* img, void* out, const void* scale, const void* mat9, const void* gain,

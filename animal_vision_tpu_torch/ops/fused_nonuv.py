@@ -19,11 +19,20 @@ counts kernel launches per wrapper. Tables are device tensors built once by
 the caller (``iso_params``, ``streak_tables``, ``scone_gain``) and shared by
 every frame of a batch; frame sizes are run-time arguments of the kernels,
 so no table depends on anything but H.
+
+``iso_u8`` and ``streak_u8`` encode by exact thresholds: ``encode_table``
+makes, once per device, the table of the least float at which the card's
+own powf encode reaches each code (and the floats where it is not
+monotone), and both kernels take it. ``iso_u8`` runs row-streaming strips
+(one block per 64-column strip and run of ``iso_run_rows`` rows), and
+``streak_u8`` one block per resident slot (``streak_blocks``), each taking
+an equal share of the batch's rows.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -32,17 +41,35 @@ from animal_vision_tpu_torch.core import blur as _blur
 from animal_vision_tpu_torch.core import color as _color
 from animal_vision_tpu_torch.core import effects as _effects
 from animal_vision_tpu_torch.ops import _build
+from animal_vision_tpu_torch.ops.fused_blur import SMS, WARPS_PER_SM, smem_limit
 
 #: Kernel launches per wrapper (plain-version calls are not counted).
 LAUNCHES = {"iso_u8": 0, "streak_u8": 0, "pointwise_u8": 0}
 
+#: The iso kernel's strips, rows per step and largest kernel size; runs of
+#: output rows per block, longest first (csrc/fused_nonuv.cu)
+ISO_TILE_W = 64
+ISO_GROUP = 8
+ISO_STAGES = 4
+ISO_MAX_TAPS = 55
+ISO_RUN_ROWS = (128, 64, 32, 16, 8)
+ISO_BLOCK_WARPS = 6
+#: Floats of the device encode table: 255 thresholds, 256 exception floats
+#: and 256 exception codes
+ENCODE_TABLE = 255 + 2 * 256
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_ulonglong
 _ARGTYPES = {
-    "av_iso_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "av_iso_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "av_streak_u8": [_P, _P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _I, _I, _P],
+    "av_iso_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "av_iso_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "av_streak_u8": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
     "av_pointwise_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "av_encode_table": [_P, _P, _P],
+    "av_encode_check": [_P, _U64, _U64, _P, _P],
+    "av_iso_smem": [_I, _I],
+    "av_streak_slots": [_I, _I, ctypes.POINTER(_I)],
 }
 
 
@@ -90,6 +117,51 @@ def _launch(fn: str, img: torch.Tensor, *args) -> None:
     _build.launch(_lib(), fn, img.device, *args)
 
 
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _query(fn: str, device_index: int, *args) -> int:
+    """An int that the library's entry point ``fn`` reports for the device."""
+    lib = _lib()
+    got = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _build.check(lib, getattr(lib, fn)(*args, ctypes.byref(got)), fn)
+    return got.value
+
+
+@functools.lru_cache(maxsize=None)
+def _encode_table(device_index: int) -> torch.Tensor:
+    device = torch.device("cuda", device_index)
+    table = torch.empty(ENCODE_TABLE, dtype=torch.float32, device=device)
+    status = torch.zeros(2, dtype=torch.int32, device=device)
+    _launch("av_encode_table", table, table.data_ptr(), status.data_ptr())
+    exceptions, collisions = status.tolist()  # synchronizes, once per device
+    if collisions:
+        raise RuntimeError(f"encode_table: {exceptions} floats where the card's encode is not monotone, "
+                           f"{collisions} of them at a step that already has one")
+    return table
+
+
+def encode_table(device: torch.device) -> torch.Tensor:
+    """The device encode table of the CUDA ``device``, made once: T[1..255]
+    (the least float32 at which the card's powf encode reaches each code),
+    then per threshold count k the float where the encode is not monotone
+    (NaN where none) and its code. ``iso_u8`` and ``streak_u8`` take it."""
+    return _encode_table(_index(torch.device(device)))
+
+
+def encode_check(device: torch.device, start: int = 0, count: int = 1 << 32) -> tuple[int, int]:
+    """(mismatches, first mismatching bit pattern) of the kernels' threshold
+    encode against the powf encode at the float32 bit patterns ``start`` ..
+    ``start + count - 1``, on the card."""
+    table = encode_table(device)
+    result = torch.tensor([0, -1], dtype=torch.int64, device=table.device)
+    _launch("av_encode_check", table, table.data_ptr(), start, count, result.data_ptr())
+    bad, first = (int(v) & (2**64 - 1) for v in result.tolist())
+    return bad, first
+
+
 def scale_of(img: torch.Tensor) -> torch.Tensor:
     """Per-frame ``normalize_image`` scale of (H, W, 3) or (N, H, W, 3):
     an (N,) float32 tensor, 1/255 where the frame's max exceeds 1, else 1.
@@ -116,6 +188,53 @@ def iso_params(mat: np.ndarray, sigma: float) -> np.ndarray:
     return np.concatenate([np.asarray(mat, np.float32).reshape(9), kern]).astype(np.float32)
 
 
+def iso_smem_bytes(ksize: int, elem: int) -> int:
+    """Shared memory of one iso block, for ``elem``-byte frames (1: uint8,
+    4: float32): the taps rounded up to 4 (kp), the decode and encode
+    tables, two decoded spans of 8 rows of 64 + kp pixels, the ring of
+    8 (lag + 2) W-pass rows (lag = (kp + 6) // 8), the column table, the
+    staged rows' offsets, ISO_STAGES groups of 8 staged input rows (16-byte
+    chunks) and two groups of 8 encoded rows. Must equal ``iso_layout`` in
+    ``csrc/fused_nonuv.cu``."""
+    def a16(b):
+        return (b + 15) // 16 * 16
+
+    kp = (ksize + 3) & ~3
+    span = ISO_TILE_W + kp
+    ring = ISO_GROUP * ((kp + 6) // ISO_GROUP + 2)
+    pitch = 16 * ((span * 3 * elem + 15) // 16 + 1)
+    enc = 4 * (257 + 256) + 256
+    return (a16(4 * kp) + a16(4 * 256) + a16(enc) + a16(4 * 2 * ISO_GROUP * span * 3)
+            + a16(4 * ring * ISO_TILE_W * 3) + a16(4 * span) + a16(4 * ISO_STAGES * ISO_GROUP)
+            + a16(ISO_STAGES * ISO_GROUP * pitch) + a16(2 * ISO_GROUP * (ISO_TILE_W * 3 + 16)))
+
+
+def library_iso_smem_bytes(ksize: int, elem: int) -> int:
+    """An iso block's shared memory as the library counts it (builds the library)."""
+    return _lib().av_iso_smem(ksize, elem)
+
+
+def iso_check_ksize(ksize: int, elem: int, limit: int) -> int:
+    """A block's shared memory in bytes; raises, naming ``ksize``, for an
+    even ksize, one above ISO_MAX_TAPS or one whose block is above ``limit``."""
+    if ksize < 1 or ksize % 2 == 0 or ksize > ISO_MAX_TAPS:
+        raise ValueError(f"iso_u8: ksize {ksize} must be odd and at most {ISO_MAX_TAPS}")
+    need = iso_smem_bytes(ksize, elem)
+    if need > limit:
+        raise ValueError(f"iso_u8: ksize {ksize} needs {need} bytes of shared memory per block; the card allows {limit}")
+    return need
+
+
+def iso_run_rows(n: int, h: int, w: int) -> int:
+    """Output rows per iso block: the longest run whose grid still gives
+    every SM ``WARPS_PER_SM`` warps (the shortest run for small frames)."""
+    warps = n * -(-w // ISO_TILE_W) * ISO_BLOCK_WARPS
+    for rows in ISO_RUN_ROWS:
+        if warps * -(-h // rows) >= WARPS_PER_SM * SMS:
+            return rows
+    return ISO_RUN_ROWS[-1]
+
+
 def iso_u8_plain(img: torch.Tensor, scale: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     """Plain version of ``iso_u8``."""
     frames = _frames(img)
@@ -138,11 +257,13 @@ def iso_u8(img: torch.Tensor, scale: torch.Tensor, params: torch.Tensor) -> torc
     if img.device.type == "cpu":
         return iso_u8_plain(img, scale, params)
     n, h, w, _ = frames.shape
+    ksize = int(params.numel()) - 9
+    iso_check_ksize(ksize, frames.element_size(), smem_limit(_index(frames.device)))
     out = torch.empty(frames.shape, dtype=torch.uint8, device=frames.device)
     params = params.contiguous()
     fn = "av_iso_u8" if frames.dtype == torch.uint8 else "av_iso_f32"
     _launch(fn, frames, frames.data_ptr(), out.data_ptr(), scale.data_ptr(), params.data_ptr(),
-            int(params.numel()) - 9, n, h, w)
+            encode_table(frames.device).data_ptr(), ksize, iso_run_rows(n, h, w), n, h, w)
     LAUNCHES["iso_u8"] += 1
     return out.reshape(img.shape)
 
@@ -202,6 +323,23 @@ def streak_tables(
     return tab, mix, r
 
 
+@functools.lru_cache(maxsize=None)
+def streak_slots(device_index: int, r: int, w: int) -> int:
+    """Streak blocks the card holds at once for radius ``r`` and width ``w``
+    (SMs x resident blocks per SM); raises when one block does not fit."""
+    slots = _query("av_streak_slots", device_index, r, w)
+    if slots < 1:
+        raise ValueError(f"streak_u8: a row of width {w} with radius {r} does not fit one block's shared memory")
+    return slots
+
+
+def streak_blocks(n: int, h: int, slots: int) -> int:
+    """Streak blocks for a batch: one per resident slot, at most one per
+    row. Block b of B takes rows n h b // B .. n h (b + 1) // B - 1 of the
+    batch's n h rows (frames one after another)."""
+    return min(slots, n * h)
+
+
 def streak_u8_plain(
     img: torch.Tensor, scale: torch.Tensor, tab: torch.Tensor, mix: torch.Tensor,
     chroma: float | None = None,
@@ -239,13 +377,15 @@ def streak_u8(
         raise ValueError(f"tables {tuple(tab.shape)}, {tuple(mix.shape)} do not fit H={h}")
     if img.device.type == "cpu":
         return streak_u8_plain(img, scale, tab, mix, chroma)
+    r = int(tab.shape[1]) - 1
+    blocks = streak_blocks(n, h, streak_slots(_index(frames.device), r, w))
     out = torch.empty_like(frames)
     tab = tab.contiguous()
     mix = mix.contiguous()
     keep = 1.0 - chroma if chroma is not None else 1.0
     _launch("av_streak_u8", frames, frames.data_ptr(), out.data_ptr(), scale.data_ptr(),
-            tab.data_ptr(), mix.data_ptr(), int(tab.shape[1]) - 1, keep,
-            int(chroma is not None), n, h, w)
+            tab.data_ptr(), mix.data_ptr(), encode_table(frames.device).data_ptr(), r, keep,
+            int(chroma is not None), blocks, n, h, w)
     LAUNCHES["streak_u8"] += 1
     return out.reshape(img.shape)
 

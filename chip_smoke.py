@@ -15,7 +15,9 @@ raises on failure:
    instance's registers, spills and dynamic shared memory and the count of
    ``HMMA`` instructions in its SASS (``cuobjdump --dump-sass``), and fails
    if one has none;
-3. kernels: every kernel of the main path against its plain PyTorch version
+3. kernels: the non-UV kernels' threshold encode against the powf encode
+   at all 2^32 float32 bit patterns (equal), then every kernel of the main
+   path against its plain PyTorch version
    on the card at 1080x1920 and 721x1283: the three non-UV kernels on two
    random frames plus a frame of 0/1 values (so both branches of the
    per-frame scale run), <= 1 LSB; the UV blur on 3 float32 frames in
@@ -35,7 +37,11 @@ raises on failure:
    ``ffn`` also get a second bound, for their 3xTF32 tensor-core products
    (the largest of 3 x product operations / 495 TFLOP/s, the other
    operations / 67 TFLOP/s and bytes / 3.35 TB/s), which is the
-   ``bound_ms`` of their summary entries;
+   ``bound_ms`` of their summary entries; then the ablation: the non-UV
+   kernels taken apart (``csrc/nonuv_probe.cu``, the port of
+   ``tools/exp_micro.py:28``) on 4 uint8 1080p frames: a copy, the sRGB
+   curves by powf and by tables, a 3x3 mix, 12 and 28 W-taps, ms per
+   frame; the table variants must give the powf variants' bytes;
 4. main path: ``get_animal(name).visualize(frame)`` and
    ``visualize_batch_device`` (4 frames already on the card) at 1080p, first
    for the 20 non-UV species, then for the ported UV species, with the
@@ -132,6 +138,13 @@ FFN_TOL = 1e-4
 MSTL_FORWARD_REL_TOL = 5e-4  # of max |y|: the seeded model's output reaches the hundreds
 MSTL_FORWARD_REPS = 5
 MSTL_PER_FORWARD = 27
+# the non-UV ablation (csrc/nonuv_probe.cu): (name, curve, mix, taps) per variant
+PROBE_FRAMES = 4
+PROBE_VARIANTS = (("copy", 0, 0, 0), ("curves by powf", 1, 0, 0), ("curves by tables", 2, 0, 0),
+                  ("tables + 3x3 mix", 2, 1, 0), ("tables + mix + 12 W-taps", 2, 1, 12),
+                  ("tables + mix + 28 W-taps", 2, 1, 28), ("powf + 3x3 mix", 1, 1, 0),
+                  ("powf + mix + 28 W-taps", 1, 1, 28))
+PROBE_REPS = 50
 SOURCES = {
     "iso_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
     "streak_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
@@ -449,6 +462,16 @@ def kernels_phase(device: torch.device, shapes=SHAPES, kernel_reps=KERNEL_REPS,
 
     rng = np.random.default_rng(SEED)
     rows = []
+    if device.type == "cuda":
+        table = F.encode_table(device)
+        exc = [(f"0x{int(np.float32(x).view(np.uint32)):08x}", int(table[255 + 256 + k].item()), k)
+               for k, x in enumerate(table[255:255 + 256].tolist()) if not np.isnan(x)]
+        t0 = time.perf_counter()
+        bad, first = F.encode_check(device)
+        log(f"[kernel] threshold encode vs powf encode at all 2^32 float32 bit patterns: {bad} mismatches "
+            f"({time.perf_counter() - t0:.2f} s); exceptions kept (bits, code, count): {exc}")
+        if bad:
+            raise AssertionError(f"threshold encode differs from the powf encode at {bad} floats (first 0x{first:08x})")
     for h, w in shapes:
         for case in kernel_cases(h, w, device, rng):
             errs = [max_lsb(case["run"](x, s), case["plain"](x, s)) for x, s in zip(case["ins"], case["scales"])]
@@ -783,6 +806,59 @@ def ffn_phase(device: torch.device, cases=FFN_CASES, reps=MST_KERNEL_REPS, plain
             f"{row['bound_tc_ms'] / ms:.1%} of it; tile {row['tile']})")
         del x, ws
     return rows
+
+
+def probe_lib():
+    """``csrc/nonuv_probe.cu``'s library, with its entry point typed."""
+    import ctypes
+
+    from animal_vision_tpu_torch.ops import _build
+
+    lib = _build.load("nonuv_probe")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.av_nonuv_probe.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.av_nonuv_probe.restype = ctypes.c_int
+    return lib
+
+
+def ablation_phase(device: torch.device, hw=MAIN_HW, frames=PROBE_FRAMES, variants=PROBE_VARIANTS,
+                   reps=PROBE_REPS) -> dict:
+    """The non-UV kernels taken apart (``csrc/nonuv_probe.cu``, the port of
+    ``tools/exp_micro.py:28``): each variant over ``frames`` uint8 frames
+    of ``hw``, ms per launch and per frame (CUDA events). The table
+    variants must give the powf variants' bytes exactly. Raises if a probe
+    kernel does not build or launch."""
+    from animal_vision_tpu_torch.core import color
+    from animal_vision_tpu_torch.ops import _build
+    from animal_vision_tpu_torch.ops import fused_nonuv as F
+    from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS
+
+    lib = probe_lib()
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    x = torch.randint(0, 256, (frames, *hw, 3), generator=gen, device=device, dtype=torch.uint8)
+    scale = F.scale_of(x)
+    spec = NONUV_SPECS["dog"]
+    mat9 = torch.from_numpy(color.collapse_lms_matrix(spec.alpha, spec.s_scale).reshape(9).copy()).to(device)
+    thr = F.encode_table(device)
+    outs, rows = {}, []
+    for name, curve, mix, k in variants:
+        out = torch.empty_like(x)
+
+        def run(out=out, curve=curve, mix=mix, k=k):
+            _build.launch(lib, "av_nonuv_probe", device, x.data_ptr(), out.data_ptr(), scale.data_ptr(),
+                          thr.data_ptr(), mat9.data_ptr(), curve, mix, k, frames, *hw)
+
+        run()
+        sync(device)
+        ms = time_ms(run, reps, device)
+        outs[(curve, mix, k)] = out
+        rows.append(dict(variant=name, curve=("copy", "powf", "tables")[curve], mix=bool(mix), taps=k, frames=frames,
+                         h=hw[0], w=hw[1], ms=ms, ms_per_frame=ms / frames))
+        log(f"[ablation] {name:<28} {ms:.4f} ms per launch of {frames} frames, {ms / frames:.4f} ms per frame")
+    for a, b in (((1, 0, 0), (2, 0, 0)), ((1, 1, 0), (2, 1, 0)), ((1, 1, 28), (2, 1, 28))):
+        if a in outs and b in outs and not torch.equal(outs[a], outs[b]):
+            raise AssertionError(f"probe variants {a} and {b} differ by up to {max_lsb(outs[a], outs[b])} LSB")
+    return dict(variants=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1280,6 +1356,7 @@ def main() -> int:
     blur_rows = blur_phase(device)
     mst_rows = mst_kernels_phase(device)
     ffn_rows = ffn_phase(device)
+    ablation = ablation_phase(device)
     main_run = main_path_phase(device)
     uv_run = uv_main_path_phase(device)
     mst_run = mst_main_path_phase(device)
@@ -1297,7 +1374,8 @@ def main() -> int:
                 **{k: mst_run["launches"][k] for k in MST_PER_FORWARD}, "ffn_kernel": mst_l_run["launches"]["ffn"]}
     kernels = summary(kernel_rows, blur_rows, mst_rows, ffn_rows, launches)
     REPORT.parent.mkdir(exist_ok=True)
-    REPORT.write_text(json.dumps(dict(device=info, build=build, kernel_cases=kernel_rows, blur_cases=blur_rows,
+    REPORT.write_text(json.dumps(dict(device=info, build=build, ablation=ablation, kernel_cases=kernel_rows,
+                                      blur_cases=blur_rows,
                                       mst_cases=mst_rows, ffn_cases=ffn_rows, main_path=main_run,
                                       uv_main_path=uv_run, mst_main_path=mst_run, mst_l_main_path=mst_l_run,
                                       profile=profile_run,

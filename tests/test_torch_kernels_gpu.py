@@ -120,6 +120,132 @@ def test_streak_kernel(cuda, no_plain_on_cuda, shape, name):
                      x, F.scale_of(x), "streak_u8")
 
 
+def test_encode_table_exhaustive(cuda):
+    """The kernels' threshold encode equals the powf encode at every one of
+    the 2^32 float32 bit patterns: the 1,065,353,217 floats in [0, 1],
+    negatives, values above 1, infinities and NaN."""
+    table = F.encode_table(cuda)
+    assert table.shape == (F.ENCODE_TABLE,) and table.dtype == torch.float32
+    thr = table[:255].cpu().numpy()
+    assert thr[0] > 0 and thr[-1] <= 1 and np.all(np.diff(thr) > 0)
+    bad, first = F.encode_check(cuda)
+    assert bad == 0, f"{bad} mismatches, first at 0x{first:08x}"
+
+
+def _pinned(monkeypatch, name, value):
+    """Pin a wrapper's partition (``iso_run_rows``, ``streak_blocks``) to ``value``."""
+    monkeypatch.setattr(F, name, lambda *args, **kwargs: value)
+
+
+def _iso_vs_plain(no_plain_on_cuda, shape, ksize, as_float=False, seed=0):
+    sigma = (ksize - 1) / 8  # cv2_auto_ksize(sigma) == ksize
+    params = F.iso_params(color.collapse_lms_matrix(0.58, 0.65), sigma)
+    assert params.size - 9 == ksize
+    x = _frames(shape, "cpu", seed=seed)
+    scale = F.scale_of(x)
+    if as_float:
+        x = (x.float() / 255.0).contiguous()
+        scale = torch.ones(shape[0])
+    got = F.iso_u8(x.to("cuda"), scale.to("cuda"), _table(params, "cuda"))
+    want = no_plain_on_cuda["iso_u8_plain"](x, scale, torch.from_numpy(params))
+    assert got.shape == x.shape and got.dtype == torch.uint8
+    assert _lsb(got.cpu(), want) <= 1
+
+
+@pytest.mark.parametrize("ksize", [3, 29, 55])
+@pytest.mark.parametrize("width", [63, 64, 65, 129, 1283])
+@pytest.mark.parametrize("height", [(16, -1), (16, 1), (128, -1), (128, 1)])
+def test_iso_kernel_strips_and_runs(cuda, no_plain_on_cuda, monkeypatch, height, width, ksize):
+    """Strip edges (widths 63, 64, 65, 129 and 1283, whose rows start off 16
+    bytes) and run edges (heights one row either side of a run of 16 or
+    128 rows, the run length pinned), at ksize 3, 29 and 55."""
+    rows, delta = height
+    _pinned(monkeypatch, "iso_run_rows", rows)
+    _iso_vs_plain(no_plain_on_cuda, (1, rows + delta, width), ksize, seed=ksize)
+
+
+@pytest.mark.parametrize("ksize", [3, 9, 55])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 5, 3), (1, 37, 53), (2, 17, 65), (1, 129, 1283)])
+def test_iso_kernel_float_strips(cuda, no_plain_on_cuda, shape, ksize):
+    """The float32 instance (the cat's) from 1x1 frames to strips and runs."""
+    _iso_vs_plain(no_plain_on_cuda, shape, ksize, as_float=True)
+
+
+@pytest.mark.parametrize("as_float", [False, True])
+def test_iso_kernel_frames_independent(cuda, no_plain_on_cuda, as_float):
+    """Each frame of a batch equals the same frame alone, bit for bit, and
+    two runs are bit-equal."""
+    params = _table(F.iso_params(color.collapse_lms_matrix(0.58, 0.65), 3.5), cuda)
+    x = _frames((3, 70, 130), cuda, seed=3)
+    scale = F.scale_of(x)
+    if as_float:
+        x = (x.float() / 255.0).contiguous()
+        scale = torch.ones(3, device=cuda)
+    got = F.iso_u8(x, scale, params)
+    assert torch.equal(got, F.iso_u8(x, scale, params))
+    for i in range(3):
+        assert torch.equal(got[i:i + 1], F.iso_u8(x[i:i + 1].contiguous(), scale[i:i + 1], params))
+
+
+def test_iso_raises_naming_ksize(cuda):
+    """A kernel size above ISO_MAX_TAPS raises and names its size; nothing
+    falls back. The library's shared memory per block is the wrapper's count."""
+    for k, elem in ((1, 1), (3, 1), (29, 1), (55, 1), (9, 4), (55, 4)):
+        assert F.library_iso_smem_bytes(k, elem) == F.iso_smem_bytes(k, elem)
+    params = torch.cat([torch.eye(3, device=cuda).reshape(9), torch.full((57,), 1.0 / 57, device=cuda)])
+    x = torch.zeros(1, 8, 8, 3, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="ksize 57"):
+        F.iso_u8(x, F.scale_of(x), params)
+
+
+def _streak_vs_plain(no_plain_on_cuda, name, shape, r_fixed=None, seed=0):
+    spec = NONUV_SPECS[name]
+    chroma = spec.effects[1].params[0] if len(spec.effects) == 2 else None
+    tab, mix, _ = F.streak_tables(shape[1], spec.effects[0].params, spec.alpha, spec.s_scale, r_fixed)
+    x = _frames(shape, "cpu", seed=seed)
+    scale = F.scale_of(x)
+    got = F.streak_u8(x.to("cuda"), scale.to("cuda"), _table(tab, "cuda"), _table(mix, "cuda"), chroma)
+    want = no_plain_on_cuda["streak_u8_plain"](x, scale, torch.from_numpy(tab), torch.from_numpy(mix), chroma)
+    assert got.shape == x.shape and got.dtype == torch.uint8
+    assert _lsb(got.cpu(), want) <= 1
+
+
+@pytest.mark.parametrize("name", ["deer", "rabbit"])
+@pytest.mark.parametrize("width", [1, 63, 64, 65, 129, 1283])
+@pytest.mark.parametrize("height", [(1, 1), (7, 1), (7, 3), (16, 5), (16, 32)])
+def test_streak_kernel_rows(cuda, no_plain_on_cuda, monkeypatch, height, width, name):
+    """Two frames of h rows shared by 1, 3, 5 or 32 blocks (the count
+    pinned), so that blocks end mid-frame and open a second frame; widths 1
+    to 1283 (rows that start off 16 bytes, a last thread's ragged window)."""
+    h, blocks = height
+    _pinned(monkeypatch, "streak_blocks", blocks)
+    _streak_vs_plain(no_plain_on_cuda, name, (2, h, width), seed=width)
+
+
+@pytest.mark.parametrize("r_fixed", [16, 17, 40])
+@pytest.mark.parametrize("shape", [(1, 9, 130), (2, 5, 3)])
+def test_streak_kernel_wide_radius(cuda, no_plain_on_cuda, shape, r_fixed):
+    """Tables widened with zeros to r = 16 (the register-window path's
+    largest), 17 and 40 (taken pixel by pixel)."""
+    _streak_vs_plain(no_plain_on_cuda, "deer", shape, r_fixed=r_fixed)
+
+
+@pytest.mark.parametrize("name", ["deer", "rabbit"])
+def test_streak_kernel_frames_independent(cuda, no_plain_on_cuda, name):
+    """Each frame of a batch equals the same frame alone, bit for bit, and
+    two runs are bit-equal."""
+    spec = NONUV_SPECS[name]
+    chroma = spec.effects[1].params[0] if len(spec.effects) == 2 else None
+    tab, mix, _ = F.streak_tables(70, spec.effects[0].params, spec.alpha, spec.s_scale)
+    tab, mix = _table(tab, cuda), _table(mix, cuda)
+    x = _frames((3, 70, 130), cuda, seed=4)
+    scale = F.scale_of(x)
+    got = F.streak_u8(x, scale, tab, mix, chroma)
+    assert torch.equal(got, F.streak_u8(x, scale, tab, mix, chroma))
+    for i in range(3):
+        assert torch.equal(got[i:i + 1], F.streak_u8(x[i:i + 1].contiguous(), scale[i:i + 1], tab, mix, chroma))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("with_gain", [False, True])
 def test_pointwise_kernel(cuda, no_plain_on_cuda, shape, with_gain):
