@@ -3,18 +3,20 @@
 // Each kernel runs a whole species chain in one pass over device memory:
 // uint8 RGB frame -> per-frame 1/255 scale -> sRGB->linear -> colour / blur
 // -> linear->sRGB -> uint8 frame. Frames are (N, H, W, 3) interleaved and
-// read in that layout; N is gridDim.z, and the per-frame scale is an (N,)
-// float32 array on the device. Tables (colour matrix, blur taps, per-row
-// streak and gain tables) are shared by all frames of a batch.
+// read in that layout (the frame is blockIdx.z in iso_kernel, blockIdx.y
+// in pointwise_kernel; streak_kernel's blocks share the batch's rows); the
+// per-frame scale is an (N,) float32 array on the device. Tables (colour
+// matrix, blur taps, per-row streak and gain tables) are shared by all
+// frames of a batch.
 //
 // Numerics: accurate powf and IEEE division (built without
 // --use_fast_math), float32 accumulation. The plain PyTorch versions in
 // ops/fused_nonuv.py compute the same function; kernels agree with them to
-// <= 1 uint8 LSB. iso_kernel and streak_kernel take the sRGB curves as
+// <= 1 uint8 LSB. All three take the sRGB curves of uint8 frames as
 // tables (srgb.cuh): a 256-entry decode table per block, bit for bit the
 // powf curve, and the encode by exact thresholds, equal to the powf encode
 // at every float. Its device table is made once per device by
-// av_encode_table (ops/fused_nonuv.py:encode_table) and passed to both.
+// av_encode_table (ops/fused_nonuv.py:encode_table) and passed to each.
 //
 // C interface (loaded with ctypes): every entry point takes raw device
 // pointers and the stream, launches on that stream without synchronising,
@@ -31,7 +33,6 @@
 namespace {
 
 using srgb::clamp01;
-using srgb::encode_u8;
 using srgb::linearize;
 using srgb::load_scaled;
 
@@ -626,32 +627,164 @@ int launch_streak(const void* img, void* out, const void* scale, const void* tab
 // Replaces animal_vision_tpu/ops/fused_nonuv.py:_pointwise_kernel, reached
 // through _pointwise_pallas / fused_pointwise_u8 / fused_scone_tab_u8.
 //
-// Bound on this card: bytes (6 per pixel against ~24 multiply-adds and six
-// powf). Design: one thread per pixel, the 3x3 matrix in registers; a
-// later version would move 16-byte vectors per thread.
+// Bound on this card: bytes. A pixel moves 6 bytes against 9 multiply-adds
+// (and a gain); six powf curves per pixel, 1-byte accesses at a 3-byte
+// stride and a 64-bit division per pixel would cost several times that.
+// The arithmetic left per element is the threshold encode (a __powf
+// estimate and a test). The design:
+// - One frame per block: the grid is (blocks per frame, N). Each block
+//   fills its frame's decode table and its copy of the encode table once
+//   (srgb::fill_tables, as iso_kernel and streak_kernel do) and strides
+//   over that frame's pixels. Blocks per frame come from the blocks the
+//   card holds at once (ops/fused_nonuv.py:pointwise_blocks), so a table
+//   fill is paid a few hundred times per frame.
+// - 16-byte vector traffic: a thread's unit is 16 pixels, 48 bytes: three
+//   uint4 loads issued before any arithmetic, three uint4 stores. Units
+//   start at the frame's first byte offset that is a multiple of 3 and lies
+//   on 16 bytes (within 48 bytes of the frame's start, as frame n starts at
+//   n H W 3 and a slice can start anywhere). The head before it and the
+//   tail after the last whole unit (at most 15 pixels each) go byte by
+//   byte, in the frame's block 0. Where the output's offset within 16 bytes
+//   differs from the input's (a frame passed as an unaligned slice), units
+//   store byte by byte.
+// - The matrix sits in registers, read once per thread; products and sums
+//   are spelled out (mix_row) so that the compiler's contractions do not
+//   decide a byte. The rat's gain row takes one 32-bit division per unit:
+//   at W >= 16 a unit crosses at most one row boundary (two gains, read
+//   through the read-only path), narrower frames count rows pixel by pixel.
 // ---------------------------------------------------------------------------
 
 constexpr int kPointwiseThreads = 256;
+constexpr int kPointwisePix = 16;  // pixels per unit: 48 bytes, three 16-byte vectors
+// Resident blocks per SM: the rat's instance fits 32 registers (a full SM
+// of threads); the pig's spills below 64, so it takes 64 and four blocks.
+__host__ __device__ constexpr int pointwise_blocks_per_sm(bool gain) { return gain ? 8 : 4; }
 
-__global__ void __launch_bounds__(kPointwiseThreads)
+// m[3c] l0 + m[3c + 1] l1 + m[3c + 2] l2, in this order.
+__device__ __forceinline__ float mix_row(const float* m, float l0, float l1, float l2) {
+  return __fmaf_rn(m[2], l2, __fmaf_rn(m[1], l1, __fmul_rn(m[0], l0)));
+}
+
+// One pixel's three codes from its three input bytes; g is its row's gain
+// (kGain only).
+template <bool kGain>
+__device__ __forceinline__ void pointwise_pixel(uint32_t b0, uint32_t b1, uint32_t b2, const float (&m)[9], float g,
+                                                const float* __restrict__ s_lut, const srgb::EncTable& et,
+                                                uint32_t (&code)[3]) {
+  const float l0 = s_lut[b0], l1 = s_lut[b1], l2 = s_lut[b2];
+  const float o0 = mix_row(m, l0, l1, l2);
+  const float o1 = mix_row(m + 3, l0, l1, l2);
+  float o2 = mix_row(m + 6, l0, l1, l2);
+  if constexpr (kGain) o2 = clamp01(__fmul_rn(o2, g));
+  code[0] = srgb::encode_u8_thr(o0, et);
+  code[1] = srgb::encode_u8_thr(o1, et);
+  code[2] = srgb::encode_u8_thr(o2, et);
+}
+
+// A unit: 48 input bytes in `word` to 48 output bytes in `ow`; gain_of(i)
+// is pixel i's gain, called for i = 0..15 in order.
+template <bool kGain, typename GainOf>
+__device__ __forceinline__ void pointwise_unit(const uint32_t (&word)[12], uint32_t (&ow)[12], const float (&m)[9],
+                                               const float* __restrict__ s_lut, const srgb::EncTable& et,
+                                               GainOf gain_of) {
+#pragma unroll
+  for (int k = 0; k < 12; ++k) ow[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < kPointwisePix; ++i) {
+    uint32_t b[3], code[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) b[c] = (word[(3 * i + c) >> 2] >> (8 * ((3 * i + c) & 3))) & 255u;
+    pointwise_pixel<kGain>(b[0], b[1], b[2], m, gain_of(i), s_lut, et, code);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ow[(3 * i + c) >> 2] |= code[c] << (8 * ((3 * i + c) & 3));
+  }
+}
+
+template <bool kGain>
+__global__ void __launch_bounds__(kPointwiseThreads, pointwise_blocks_per_sm(kGain))
 pointwise_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, const float* __restrict__ scale,
-                 const float* __restrict__ mat9, const float* __restrict__ gain, int h, int w) {
-  const size_t px = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t npx = static_cast<size_t>(h) * w;
-  if (px >= npx) return;
-  const int n = blockIdx.z;
-  const float sc = scale[n];
-  const size_t off = (static_cast<size_t>(n) * npx + px) * 3;
-  const float l0 = linearize(load_scaled(img[off], sc));
-  const float l1 = linearize(load_scaled(img[off + 1], sc));
-  const float l2 = linearize(load_scaled(img[off + 2], sc));
-  const float o0 = mat9[0] * l0 + mat9[1] * l1 + mat9[2] * l2;
-  const float o1 = mat9[3] * l0 + mat9[4] * l1 + mat9[5] * l2;
-  float o2 = mat9[6] * l0 + mat9[7] * l1 + mat9[8] * l2;
-  if (gain != nullptr) o2 = clamp01(o2 * gain[px / w]);
-  out[off] = encode_u8(o0);
-  out[off + 1] = encode_u8(o1);
-  out[off + 2] = encode_u8(o2);
+                 const float* __restrict__ mat9, const float* __restrict__ gain, const float* __restrict__ enc,
+                 int h, int w) {
+  __shared__ float s_lut[srgb::kLevels];
+  __shared__ __align__(16) unsigned char s_enc[srgb::kBlockEncBytes];
+  const srgb::EncTable et = srgb::enc_table_at(s_enc);
+  const int n = blockIdx.y;
+  srgb::fill_tables(s_lut, et, enc, scale[n]);
+  float m[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) m[i] = __ldg(mat9 + i);
+
+  const unsigned npx = static_cast<unsigned>(h) * static_cast<unsigned>(w);
+  const size_t frame_bytes = static_cast<size_t>(npx) * 3;
+  const uint8_t* src = img + static_cast<size_t>(n) * frame_bytes;
+  uint8_t* dst = out + static_cast<size_t>(n) * frame_bytes;
+  // head: the least p with src + 3p on 16 bytes (3 * 11 = 1 mod 16), or the whole frame
+  const unsigned shift = static_cast<unsigned>(reinterpret_cast<uintptr_t>(src) & 15);
+  const unsigned head = min(((16u - shift) * 11u) & 15u, npx);
+  const unsigned units = (npx - head) / kPointwisePix;
+  const unsigned tail = npx - head - units * kPointwisePix;
+  const bool vec_out = ((reinterpret_cast<uintptr_t>(src) ^ reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  __syncthreads();  // the tables
+
+  if (blockIdx.x == 0 && threadIdx.x < head + tail) {  // the head's and the tail's pixels, one per thread
+    const unsigned p = threadIdx.x < head ? threadIdx.x : npx - tail + (threadIdx.x - head);
+    const size_t o = static_cast<size_t>(p) * 3;
+    uint32_t code[3];
+    pointwise_pixel<kGain>(src[o], src[o + 1], src[o + 2], m, kGain ? __ldg(gain + p / w) : 1.0f, s_lut, et, code);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) dst[o + c] = static_cast<uint8_t>(code[c]);
+  }
+
+  const uint8_t* body = src + static_cast<size_t>(head) * 3;
+  uint8_t* obody = dst + static_cast<size_t>(head) * 3;
+  for (unsigned u = blockIdx.x * kPointwiseThreads + threadIdx.x; u < units; u += gridDim.x * kPointwiseThreads) {
+    const uint4* in4 = reinterpret_cast<const uint4*>(body + static_cast<size_t>(u) * 48);
+    const uint4 v0 = __ldg(in4), v1 = __ldg(in4 + 1), v2 = __ldg(in4 + 2);
+    const uint32_t word[12] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w, v2.x, v2.y, v2.z, v2.w};
+    uint32_t ow[12];
+    if constexpr (!kGain) {
+      pointwise_unit<false>(word, ow, m, s_lut, et, [](int) { return 1.0f; });
+    } else {
+      const unsigned q0 = head + u * kPointwisePix;  // the unit's first pixel
+      const unsigned r0 = q0 / static_cast<unsigned>(w);
+      if (w >= kPointwisePix) {
+        const int split = static_cast<int>((r0 + 1) * w - q0);  // pixels i >= split lie in row r0 + 1
+        const float g0 = __ldg(gain + r0);
+        const float g1 = split < kPointwisePix ? __ldg(gain + r0 + 1) : g0;
+        pointwise_unit<true>(word, ow, m, s_lut, et, [&](int i) { return i < split ? g0 : g1; });
+      } else {
+        unsigned row = r0, col = q0 - r0 * w;
+        pointwise_unit<true>(word, ow, m, s_lut, et, [&](int) {
+          if (col == static_cast<unsigned>(w)) {
+            col = 0;
+            ++row;
+          }
+          ++col;
+          return __ldg(gain + row);
+        });
+      }
+    }
+    uint8_t* o = obody + static_cast<size_t>(u) * 48;
+    if (vec_out) {
+      uint4* o4 = reinterpret_cast<uint4*>(o);
+      o4[0] = make_uint4(ow[0], ow[1], ow[2], ow[3]);
+      o4[1] = make_uint4(ow[4], ow[5], ow[6], ow[7]);
+      o4[2] = make_uint4(ow[8], ow[9], ow[10], ow[11]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 48; ++j) o[j] = static_cast<uint8_t>(ow[j >> 2] >> (8 * (j & 3)));
+    }
+  }
+}
+
+template <bool kGain>
+int launch_pointwise(const void* img, void* out, const void* scale, const void* mat9, const void* gain,
+                     const void* enc, int blocks, int n, int h, int w, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
+  pointwise_kernel<kGain><<<grid, kPointwiseThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(img), static_cast<uint8_t*>(out), static_cast<const float*>(scale),
+      static_cast<const float*>(mat9), static_cast<const float*>(gain), static_cast<const float*>(enc), h, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -719,14 +852,30 @@ int av_streak_u8(const void* img, void* out, const void* scale, const void* tab,
   return launch_streak<0>(img, out, scale, tab, mix, enc, r, keep, use_chroma, blocks, n, h, w, s);
 }
 
+// Blocks of pointwise_kernel (with the gain or without) the current device
+// holds at once (SMs x resident blocks per SM).
+int av_pointwise_slots(int use_gain, int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const void* fn = use_gain ? reinterpret_cast<const void*>(pointwise_kernel<true>)
+                            : reinterpret_cast<const void*>(pointwise_kernel<false>);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kPointwiseThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *slots = sms * per_sm;
+  return 0;
+}
+
+// `blocks` blocks per frame; gain null for the pig. A frame holds at most
+// 2^31 - 1 pixels (a batch at most 65535 frames: gridDim.y).
 int av_pointwise_u8(const void* img, void* out, const void* scale, const void* mat9, const void* gain,
-                    int n, int h, int w, void* stream) {
-  const size_t npx = static_cast<size_t>(h) * w;
-  const dim3 grid(static_cast<unsigned>((npx + kPointwiseThreads - 1) / kPointwiseThreads), 1, n);
-  pointwise_kernel<<<grid, kPointwiseThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(img), static_cast<uint8_t*>(out), static_cast<const float*>(scale),
-      static_cast<const float*>(mat9), static_cast<const float*>(gain), h, w);
-  return static_cast<int>(cudaGetLastError());
+                    const void* enc, int blocks, int n, int h, int w, void* stream) {
+  if (blocks < 1 || n < 1 || h < 1 || w < 1 || static_cast<long long>(h) * w > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (gain != nullptr) return launch_pointwise<true>(img, out, scale, mat9, gain, enc, blocks, n, h, w, s);
+  return launch_pointwise<false>(img, out, scale, mat9, gain, enc, blocks, n, h, w, s);
 }
 
 }  // extern "C"

@@ -20,13 +20,14 @@ the caller (``iso_params``, ``streak_tables``, ``scone_gain``) and shared by
 every frame of a batch; frame sizes are run-time arguments of the kernels,
 so no table depends on anything but H.
 
-``iso_u8`` and ``streak_u8`` encode by exact thresholds: ``encode_table``
-makes, once per device, the table of the least float at which the card's
-own powf encode reaches each code (and the floats where it is not
-monotone), and both kernels take it. ``iso_u8`` runs row-streaming strips
-(one block per 64-column strip and run of ``iso_run_rows`` rows), and
-``streak_u8`` one block per resident slot (``streak_blocks``), each taking
-an equal share of the batch's rows.
+All three kernels encode by exact thresholds: ``encode_table`` makes,
+once per device, the table of the least float at which the card's own
+powf encode reaches each code (and the floats where it is not monotone),
+and each kernel takes it. ``iso_u8`` runs row-streaming strips (one block
+per 64-column strip and run of ``iso_run_rows`` rows), ``streak_u8`` one
+block per resident slot (``streak_blocks``), each taking an equal share of
+the batch's rows, and ``pointwise_u8`` ``pointwise_blocks`` blocks per
+frame, each striding over its frame's 16-pixel units.
 """
 
 from __future__ import annotations
@@ -54,6 +55,10 @@ ISO_STAGES = 4
 ISO_MAX_TAPS = 55
 ISO_RUN_ROWS = (128, 64, 32, 16, 8)
 ISO_BLOCK_WARPS = 6
+#: pointwise_kernel's threads per block and pixels per thread and unit (48
+#: bytes: three 16-byte vectors)
+POINTWISE_THREADS = 256
+POINTWISE_PIX = 16
 #: Floats of the device encode table: 255 thresholds, 256 exception floats
 #: and 256 exception codes
 ENCODE_TABLE = 255 + 2 * 256
@@ -65,11 +70,12 @@ _ARGTYPES = {
     "av_iso_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "av_iso_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "av_streak_u8": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
-    "av_pointwise_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "av_pointwise_u8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "av_encode_table": [_P, _P, _P],
     "av_encode_check": [_P, _U64, _U64, _P, _P],
     "av_iso_smem": [_I, _I],
     "av_streak_slots": [_I, _I, ctypes.POINTER(_I)],
+    "av_pointwise_slots": [_I, ctypes.POINTER(_I)],
 }
 
 
@@ -147,7 +153,7 @@ def encode_table(device: torch.device) -> torch.Tensor:
     """The device encode table of the CUDA ``device``, made once: T[1..255]
     (the least float32 at which the card's powf encode reaches each code),
     then per threshold count k the float where the encode is not monotone
-    (NaN where none) and its code. ``iso_u8`` and ``streak_u8`` take it."""
+    (NaN where none) and its code. Each non-UV kernel takes it."""
     return _encode_table(_index(torch.device(device)))
 
 
@@ -401,6 +407,23 @@ def scone_gain(h: int, scone: tuple) -> np.ndarray:
     return _effects.s_cone_gain_ramp(h, *scone).reshape(-1, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def pointwise_slots(device_index: int, use_gain: bool) -> int:
+    """Pointwise blocks (the instance with the gain or without) the card
+    holds at once: SMs x resident blocks per SM."""
+    return _query("av_pointwise_slots", device_index, int(use_gain))
+
+
+def pointwise_blocks(n: int, npx: int, slots: int) -> int:
+    """Pointwise blocks per frame for ``n`` frames of ``npx`` pixels: the
+    frames share the resident slots, at least one block per frame and no
+    more than a frame's 16-pixel units fill at POINTWISE_THREADS per
+    block. Block b of B strides over units b T + t, b T + t + B T, ... (T
+    threads); the frame's block 0 also takes its head and tail pixels."""
+    units = -(-npx // POINTWISE_PIX)
+    return max(1, min(slots // n, -(-units // POINTWISE_THREADS)))
+
+
 def pointwise_u8_plain(
     img: torch.Tensor, scale: torch.Tensor, mat9: torch.Tensor, gain: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -429,11 +452,15 @@ def pointwise_u8(
         raise ValueError("pointwise_u8 takes a 9-element matrix and an H-element gain")
     if img.device.type == "cpu":
         return pointwise_u8_plain(img, scale, mat9, gain)
+    if n > 65535:
+        raise ValueError(f"pointwise_u8 takes at most 65535 frames per call, got {n}")
+    blocks = pointwise_blocks(n, h * w, pointwise_slots(_index(frames.device), gain is not None))
     out = torch.empty_like(frames)
     mat9 = mat9.contiguous()
     gain = None if gain is None else gain.contiguous()
     _launch("av_pointwise_u8", frames, frames.data_ptr(), out.data_ptr(), scale.data_ptr(),
-            mat9.data_ptr(), None if gain is None else gain.data_ptr(), n, h, w)
+            mat9.data_ptr(), None if gain is None else gain.data_ptr(),
+            encode_table(frames.device).data_ptr(), blocks, n, h, w)
     LAUNCHES["pointwise_u8"] += 1
     return out.reshape(img.shape)
 

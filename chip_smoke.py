@@ -28,7 +28,8 @@ raises on failure:
    (``msab_pos``) <= 1e-4, stats <= 1e-5 of max |G|, apply (``msab_pos``
    then ``ffn``) <= 5e-4; MST-L's FFN kernel at the same levels and at 721x1283
    with C = 31, weights of scale 0.2, <= 1e-4; then each kernel's time
-   (CUDA events), its plain version's time, its bound, and a library
+   (CUDA events around calls queued ahead of the card, so that no
+   wrapper's host time shows), its plain version's time, its bound, and a library
    reference for the UV blur (reflect pad + two depthwise convolutions)
    and the MST++ convolution (``F.conv2d`` on channels-last tensors), each
    with the ratio of the kernel's time to it; ``conv``, ``attn_stats``,
@@ -63,10 +64,13 @@ raises on failure:
    against its plain version on the card (forward within 5e-4 of max |y|,
    species >= 40 dB, baselines <= 1 LSB), ms and fps;
 5. profile: ``torch.profiler`` device time by name beside the host-clock
-   time for one non-UV species per kernel, the cat and the UV species,
+   time for one non-UV species per kernel (the pig and the rat for the
+   pointwise kernel's two instances), the cat and the UV species,
    through each entry point, the 1080p MST++ forward, kestrel with MST++,
    the 1080p MST-L forward and mantis shrimp with MST-L;
-6. summary: one JSON line with each kernel, then, as the last line,
+6. summary: one JSON line with each kernel (``pointwise_u8`` with its
+   share of the bytes bound and its ratio to the ablation's copy of the
+   same number of frames), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device. A detailed
@@ -102,6 +106,10 @@ TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 TC_KERNELS = ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel", "up_fuse_kernel", "ffn_kernel")
 TC_INSTANCES = ("conv_kernel", "attn_stats_kernel", "msab_pos_kernel", "up_fuse_kernel", "ffn_kernel")
 KERNEL_REPS = 100
+# time_ms: the card's wait before a timed run, at most; cycles per second of
+# that wait (at least the SM clock, so the wait lasts at least as long)
+QUEUE_AHEAD_S = 0.2
+SLEEP_CYCLES_PER_S = 2.0e9
 PLAIN_REPS = 5
 MAIN_REPS = 100
 BLUR_KSIZES = (3, 7, 9, 13, 19, 37)
@@ -112,8 +120,9 @@ BLUR_PLAIN_REPS = 2
 BLUR_REPRESENTATIVE = (19, 3)  # (ksize, C): kestrel's structure tensor at 1080p
 UV_REPS = 10
 UV_MIN_DB = 40.0
-# one non-UV species per kernel, the cat's products, and the UV species
-PROFILE_SPECIES = ("dog", "deer", "rat", "cat", "honeybee", "reindeer", "goldfish", "kestrel")
+# one non-UV species per kernel (both of the pointwise kernel's), the cat's
+# products, and the UV species
+PROFILE_SPECIES = ("dog", "deer", "rat", "pig", "cat", "honeybee", "reindeer", "goldfish", "kestrel")
 PROFILE_REPS = 5
 # MST++: (padded frame, frames per call) of the two operating points
 MST_POINTS = {"1080p": ((1080, 1920), 1), "272x480": ((272, 480), BATCH)}
@@ -184,9 +193,14 @@ def card_line() -> str:
 
 def time_ms(fn, reps: int, device: torch.device, warmup: int = 2) -> float:
     """Mean milliseconds per call of ``fn`` over ``reps`` calls after
-    ``warmup``; CUDA events on the card."""
+    ``warmup``; CUDA events on the card, with the calls queued ahead: the
+    card first waits (``torch.cuda._sleep``) for 1.5 times as long as the
+    host took to issue ``reps`` warm-up calls (at most QUEUE_AHEAD_S), so
+    that a wrapper's host time per call does not show as the kernel's."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -194,6 +208,7 @@ def time_ms(fn, reps: int, device: torch.device, warmup: int = 2) -> float:
         return (time.perf_counter() - t0) * 1e3 / reps
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(QUEUE_AHEAD_S, 1.5 * host_s * reps) * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -1279,14 +1294,17 @@ def profile_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, names=PROFILE_S
 
 
 def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], ffn_rows: list[dict],
-            launches: dict) -> dict:
+            launches: dict, ablation: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
     plain time, bound and library time of its heaviest main-path case at
     1080p. Launches come from the main-path run of the kernel's species.
     The tensor-core kernels' ``bound_ms`` is their 3xTF32 bound (the f32
     one beside it); the convolution also reports its worst ratio to
     ``F.conv2d`` over its 10 cases, the blur its worst ratio to the
-    three-call library reference over its cases."""
+    three-call library reference over its cases. ``pointwise_u8`` also
+    reports its share of the bytes bound and its ratio to the ablation's
+    copy of as many 1080p frames (``nonuv_probe`` curve 0): the floor that
+    a byte-wise kernel reaches on this card."""
     representative = {"iso_u8": "dog", "streak_u8": "deer", "pointwise_u8": "rat gain"}
     out = []
     for kernel, case in representative.items():
@@ -1299,6 +1317,10 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=None,
         ))
+        if kernel == "pointwise_u8":
+            copy = next(v for v in ablation["variants"] if v["curve"] == "copy")
+            copy_ms = copy["ms_per_frame"] * rep["frames"]
+            out[-1].update(bound_share=rep["bound_ms"] / rep["ms"], copy_ms=copy_ms, copy_ratio=rep["ms"] / copy_ms)
     k, c = BLUR_REPRESENTATIVE
     rep = next(r for r in blur_rows if (r["ksize"], r["channels"], r["h"], r["w"]) == (k, c, *MAIN_HW))
     worst = max((r for r in blur_rows if r["library_ratio"] is not None), key=lambda r: r["library_ratio"])
@@ -1372,7 +1394,7 @@ def main() -> int:
         f"on the device: {uv_run['hm_fps']:.1f} fps; through visualize: {uv_run['hm_visualize_fps']:.1f} fps")
     launches = {**main_run["launches"], "blur_uv": uv_run["launches"]["blur_uv"],
                 **{k: mst_run["launches"][k] for k in MST_PER_FORWARD}, "ffn_kernel": mst_l_run["launches"]["ffn"]}
-    kernels = summary(kernel_rows, blur_rows, mst_rows, ffn_rows, launches)
+    kernels = summary(kernel_rows, blur_rows, mst_rows, ffn_rows, launches, ablation)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(device=info, build=build, ablation=ablation, kernel_cases=kernel_rows,
                                       blur_cases=blur_rows,

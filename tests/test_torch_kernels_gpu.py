@@ -246,16 +246,68 @@ def test_streak_kernel_frames_independent(cuda, no_plain_on_cuda, name):
         assert torch.equal(got[i:i + 1], F.streak_u8(x[i:i + 1].contiguous(), scale[i:i + 1], tab, mix, chroma))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# W = 1, 7, 15 (the narrow-frame row path), 16, 17, 1283; H W not a
+# multiple of 16; frames of an odd byte count, so frame n >= 1 starts off
+# 16 bytes (3 x 5 x 1283 x 3 bytes, 2 x 7 x 7 x 3, ...)
+POINTWISE_SHAPES = SHAPES + [(2, 7, 1), (3, 5, 7), (2, 9, 15), (2, 4, 16), (3, 6, 17), (3, 5, 1283),
+                             (2, 33, 1283), (1, 1, 1283), (4, 1, 17)]
+
+
+def _at_offset(x, offset):
+    """``x`` copied into a buffer at a byte ``offset``: a contiguous tensor
+    whose data starts ``offset`` bytes past an aligned allocation."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:].copy_(x.reshape(-1))
+    return buf[offset:].view(x.shape)
+
+
+def _pointwise_tables(h, with_gain, device):
+    mat9 = _table(color.collapse_lms_matrix(0.05, 0.86).reshape(9), device)
+    gain = _table(F.scone_gain(h, NONUV_SPECS["rat"].effects[0].params), device) if with_gain else None
+    return mat9, gain
+
+
+@pytest.mark.parametrize("offset", [0, 1, 6])
+@pytest.mark.parametrize("shape", POINTWISE_SHAPES)
 @pytest.mark.parametrize("with_gain", [False, True])
-def test_pointwise_kernel(cuda, no_plain_on_cuda, shape, with_gain):
-    mat9 = _table(color.collapse_lms_matrix(0.05, 0.86).reshape(9), cuda)
-    gain = _table(F.scone_gain(shape[1], NONUV_SPECS["rat"].effects[0].params), cuda) if with_gain else None
-    x = _frames(shape, cuda)
+def test_pointwise_kernel(cuda, no_plain_on_cuda, shape, with_gain, offset):
+    """<= 1 LSB from the plain version from 1x1 frames to W = 1283, with
+    and without the rat's gain, on batches that start 0, 1 or 6 bytes past
+    16 (units then store byte by byte: the output is aligned)."""
+    mat9, gain = _pointwise_tables(shape[1], with_gain, cuda)
+    x = _at_offset(_frames(shape, cuda), offset)
     _kernel_vs_plain(
         lambda a, s: F.pointwise_u8(a, s, mat9, gain),
         lambda a, s: no_plain_on_cuda["pointwise_u8_plain"](a, s, mat9.cpu(), None if gain is None else gain.cpu()),
         x, F.scale_of(x), "pointwise_u8")
+
+
+@pytest.mark.parametrize("shape", [(3, 70, 130), (3, 5, 1283), (5, 3, 7)])
+@pytest.mark.parametrize("with_gain", [False, True])
+def test_pointwise_kernel_frames_independent(cuda, no_plain_on_cuda, shape, with_gain):
+    """Each frame of a batch equals the same frame alone, bit for bit, as a
+    copy and as the batch's own slice (which may start anywhere within 16
+    bytes), and two runs are bit-equal."""
+    mat9, gain = _pointwise_tables(shape[1], with_gain, cuda)
+    x = _frames(shape, cuda, seed=6)
+    scale = F.scale_of(x)
+    got = F.pointwise_u8(x, scale, mat9, gain)
+    assert torch.equal(got, F.pointwise_u8(x, scale, mat9, gain))
+    for i in range(shape[0]):
+        alone = F.pointwise_u8(x[i:i + 1].clone(), scale[i:i + 1], mat9, gain)
+        assert torch.equal(got[i:i + 1], alone)
+        assert torch.equal(got[i:i + 1], F.pointwise_u8(x[i:i + 1], scale[i:i + 1], mat9, gain))
+        assert torch.equal(got[i], F.pointwise_u8(x[i], scale[i:i + 1], mat9, gain))
+
+
+def test_pointwise_blocks_fit_the_card(cuda):
+    """The library's slots hold at least one block per SM for both
+    instances, and a 1080p batch of 4 gets one wave of them."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for use_gain in (False, True):
+        slots = F.pointwise_slots(torch.cuda.current_device(), use_gain)
+        assert slots >= sms
+        assert F.pointwise_blocks(4, 1080 * 1920, slots) == slots // 4
 
 
 @pytest.mark.parametrize("name", NON_UV_NAMES)

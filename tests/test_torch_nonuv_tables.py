@@ -255,3 +255,55 @@ def test_streak_row_decode_and_units(w, r):
         last = 9 * u + 8 + r  # the furthest pixel a thread's window reads
         assert 3 * (last + r) + 2 + 3 < fcount
     assert units.min() == 1 and units.max() == 1
+
+
+def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """float32 fma(a, b, c) through float64: the product is exact there, so
+    only a sum that lands on a float32 tie after its float64 rounding can
+    round otherwise than the card's single rounding."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+
+
+def _pointwise_emulated(frames: np.ndarray, scale: np.ndarray, mat9: np.ndarray, gain, table) -> np.ndarray:
+    """``pointwise_kernel``'s chain in numpy: the frame's decode table, each
+    output channel as fma(m2, l2, fma(m1, l1, m0 l0)) (``mix_row``), blue
+    times its row's gain clipped to [0, 1], the threshold encode."""
+    m = np.asarray(mat9, np.float32).reshape(9)
+    out = np.empty(frames.shape, np.int64)
+    for f, (frame, s) in enumerate(zip(frames, scale)):
+        v = torch.arange(256, dtype=torch.float32)
+        lut = color.srgb_to_linear(torch.clamp(v * np.float32(s), 0.0, 1.0)).numpy()
+        lin = lut[frame]
+        l0, l1, l2 = lin[..., 0], lin[..., 1], lin[..., 2]
+        o = [_fma(m[3 * c + 2], l2, _fma(m[3 * c + 1], l1, (m[3 * c] * l0).astype(np.float32))) for c in range(3)]
+        if gain is not None:
+            o[2] = np.clip(o[2] * np.asarray(gain, np.float32).reshape(-1, 1), 0.0, 1.0).astype(np.float32)
+        out[f] = _by_thresholds(np.stack(o, axis=-1), table)
+    return out
+
+
+@pytest.mark.parametrize("name", ["pig", "rat"])
+@pytest.mark.parametrize("shape,seed", [((2, 37, 53), 1), ((3, 16, 17), 2), ((2, 5, 7), 3), ((1, 1, 1), 4)])
+def test_pointwise_chain_emulated(table, name, shape, seed):
+    """The kernel's chain (table decode, the spelled-out matrix order, gain,
+    threshold encode) within 1 LSB of ``pointwise_u8_plain`` and of the JAX
+    ``fused_pointwise_u8`` (Pallas in interpret mode), frame by frame; the
+    last frame holds 0/1 values (the scale = 1 branch)."""
+    from animal_vision_tpu.species.nonuv import NONUV_SPECS
+
+    spec = NONUV_SPECS[name]
+    scone = spec.effects[0].params if name == "rat" else None
+    n, h, w = shape
+    x = np.random.default_rng(seed).integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    x[-1] &= 1
+    frames = torch.from_numpy(x)
+    scale = F.scale_of(frames)
+    mat9 = color.collapse_lms_matrix(spec.alpha, spec.s_scale).reshape(9).astype(np.float32)
+    gain = None if scone is None else F.scone_gain(h, scone)
+    got = _pointwise_emulated(x, scale.numpy(), mat9, gain, table)
+    plain = F.pointwise_u8_plain(frames, scale, torch.from_numpy(mat9),
+                                 None if gain is None else torch.from_numpy(gain)).numpy()
+    assert np.abs(got - plain).max() <= 1
+    for f in range(n):
+        want = np.asarray(jfused.fused_pointwise_u8(x[f], spec.alpha, spec.s_scale, scone=scone)).astype(np.int64)
+        assert np.abs(got[f] - want).max() <= 1
