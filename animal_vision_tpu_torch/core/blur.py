@@ -95,11 +95,37 @@ def conv1d_axis(img: torch.Tensor, kernel, axis: int) -> torch.Tensor:
     return out
 
 
+def gaussian_blur(
+    img: torch.Tensor,
+    sigma_x: float,
+    sigma_y: float | None = None,
+    ksize: tuple[int, int] | None = None,
+    axes: tuple[int, int] = (-2, -3),
+) -> torch.Tensor:
+    """Separable Gaussian blur, like ``cv2.GaussianBlur(img, ksize or (0,0),
+    sigma_x, sigma_y)`` on float32 with reflect-101 borders: the x pass
+    first. ``axes`` is (x axis, y axis): the default fits (..., H, W, C);
+    (-1, -2) fits (..., H, W). A ``sigma_y`` of None or <= 0 is
+    ``sigma_x``, and a kernel size <= 0 (or ``ksize`` None) is OpenCV's
+    automatic one."""
+    if sigma_y is None or sigma_y <= 0:
+        sigma_y = sigma_x
+    kx, ky = ksize if ksize is not None else (0, 0)
+    kx = kx if kx > 0 else cv2_auto_ksize(sigma_x)
+    ky = ky if ky > 0 else cv2_auto_ksize(sigma_y)
+    out = conv1d_axis(img, device_table(gaussian_kernel_1d(kx, float(sigma_x)), img.device), axes[0])
+    return conv1d_axis(out, device_table(gaussian_kernel_1d(ky, float(sigma_y)), img.device), axes[1])
+
+
 def gaussian_blur_hwc(img: torch.Tensor, sigma: float) -> torch.Tensor:
     """Auto-ksize isotropic Gaussian blur of (..., H, W, C), W pass first,
     like ``cv2.GaussianBlur(img, (0,0), sigma)`` on float32."""
-    kern = gaussian_kernel_1d(cv2_auto_ksize(sigma), float(sigma))
-    return conv1d_axis(conv1d_axis(img, kern, -2), kern, -3)
+    return gaussian_blur(img, sigma, sigma, axes=(-2, -3))
+
+
+def gaussian_blur_hw(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Auto-ksize isotropic Gaussian blur of (..., H, W) arrays."""
+    return gaussian_blur(img, sigma, sigma, axes=(-1, -2))
 
 
 def uv_taps(sigma: float, device) -> torch.Tensor:

@@ -79,6 +79,23 @@ def apply_color_matrix(img: torch.Tensor, matrix) -> torch.Tensor:
     return torch.einsum("...j,ij->...i", img, m)
 
 
+def merge_l_m(lms: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Merge the L and M cones of (..., 3) LMS: LM = alpha L + (1-alpha) M,
+    S kept."""
+    lm = alpha * lms[..., 0] + (1.0 - alpha) * lms[..., 1]
+    return torch.stack([lm, lm, lms[..., 2]], dim=-1)
+
+
+def srgb_to_lms(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB -> LMS by the forward matrix."""
+    return apply_color_matrix(img, M_RGB_TO_LMS)
+
+
+def lms_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) LMS -> RGB by the inverse matrix, cast to float32."""
+    return apply_color_matrix(img, M_LMS_TO_RGB.astype(np.float32))
+
+
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
     """float32 in [0,1]: divide by 255 iff the frame's max exceeds 1.
 

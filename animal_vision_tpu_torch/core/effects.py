@@ -1,8 +1,9 @@
 """Photometric post-effects over linear-RGB (..., H, W, 3) float32
-tensors. Counterpart of the functions of ``animal_vision_tpu/core/effects.py``
-that the non-UV species and the ported UV species use. The UV effects blur
-with ``core/blur.py:gaussian_blur_uv`` (the ``blur_uv`` kernel on the card;
-its plain version where ``plain``)."""
+tensors and (..., H, W, 1) maps. Counterpart of
+``animal_vision_tpu/core/effects.py``. The UV effects blur with
+``core/blur.py:gaussian_blur_uv`` (the ``blur_uv`` kernel on the card; its
+plain version where ``plain``); ``tapetum_bloom`` and ``rod_vision`` with
+the auto-ksize ``gaussian_blur``, as the JAX package does."""
 
 from __future__ import annotations
 
@@ -12,12 +13,36 @@ import numpy as np
 import torch
 
 from animal_vision_tpu_torch.core import blur as _blur
+from animal_vision_tpu_torch.core import stats as _stats
 
 
 def chroma_compression(img: torch.Tensor, strength: float = 0.4) -> torch.Tensor:
     """Lerp toward the per-pixel channel mean (gray)."""
     gray = torch.mean(img, dim=-1, keepdim=True)
     return gray + (img - gray) * (1.0 - strength)
+
+
+def tapetum_bloom(img: torch.Tensor, strength: float = 0.12, sigma: float = 3.0) -> torch.Tensor:
+    """Luminance-masked screen-blend bloom in linear RGB."""
+    x = torch.clamp(img.to(torch.float32), 0.0, 1.0)
+    mask = torch.clamp((_stats.luminance709(x) - 0.4) / 0.6, 0.0, 1.0)
+    mask = _blur.gaussian_blur_hwc(mask, sigma)
+    blurred = _blur.gaussian_blur_hwc(x, sigma)
+    screen = 1.0 - (1.0 - x) * (1.0 - blurred)
+    return torch.clamp(x + strength * mask * (screen - x), 0.0, 1.0)
+
+
+def rod_vision(
+    img: torch.Tensor, chroma_scale: float = 0.08, luminance_boost: float = 1.4, gamma: float = 0.8
+) -> torch.Tensor:
+    """Scotopic (rod-dominant) rendering: scotopic luma, blur, desaturate,
+    boost, gamma."""
+    x = torch.clamp(img.to(torch.float32), 0.0, 1.0)
+    lum = 0.1 * x[..., 0:1] + 0.8 * x[..., 1:2] + 0.1 * x[..., 2:3]
+    gray = _blur.gaussian_blur_hwc(lum, 1.2)
+    x = gray * (1.0 - chroma_scale) + x * chroma_scale
+    x = torch.clamp(x * luminance_boost, 0.0, 1.0)
+    return x**gamma
 
 
 def s_cone_gain_ramp(
@@ -66,6 +91,16 @@ def snow_glare_tone_compress(img: torch.Tensor, strength: float, knee: float = 0
     t = (x - knee) / (1.0 - knee)
     compressed = knee + (1.0 - knee) * (t / (1.0 + strength * t))
     return torch.where(x <= knee, x, compressed)
+
+
+def unsharp_mask(img: torch.Tensor, sigma: float, amount, plain: bool = False) -> torch.Tensor:
+    """img + amount * (img - blur(img)) with the UV blur."""
+    return img + amount * (img - _blur.gaussian_blur_uv(img, sigma, plain))
+
+
+def dog_bandpass(x: torch.Tensor, sigma_lo: float, sigma_hi: float, plain: bool = False) -> torch.Tensor:
+    """Difference-of-Gaussians band-pass of (..., H, W, C) (UV blurs)."""
+    return _blur.gaussian_blur_uv(x, sigma_lo, plain) - _blur.gaussian_blur_uv(x, sigma_hi, plain)
 
 
 def radial_sigmoid_mask(shape_hw: tuple[int, int], radius: float, softness: float) -> np.ndarray:

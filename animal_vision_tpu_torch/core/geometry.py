@@ -1,13 +1,15 @@
-"""Geometry: cv2-exact resize and the UV panorama warp, and the cat's
-tables (linear resize and binocular FOV warp as dense per-axis matrices).
+"""Geometry: cv2-exact resize, the UV panorama warp, bilinear remap, the
+center zoom and the binocular FOV warp.
 
-Counterpart of ``animal_vision_tpu/core/geometry.py``'s resize family,
-``panorama_warp``, ``vertical_remap_static`` and the cat's tables. Tap
-indices and weights are NumPy, with OpenCV's float-path coefficient
-formulas, identical to the JAX package's. ``resize`` and ``panorama_warp`` apply them per axis on the
-device as ``torch.index_select`` gathers and weighted sums in tap order
-(the JAX package's CPU path), over (..., H, W, C) tensors. The cat's device
-work is a matrix product per axis (``core/linalg.py``).
+Counterpart of ``animal_vision_tpu/core/geometry.py``. Tap indices and
+weights are NumPy, with OpenCV's float-path coefficient formulas,
+identical to the JAX package's. ``resize`` and ``panorama_warp`` apply them
+per axis on the device as ``torch.index_select`` gathers and weighted sums
+in tap order (the JAX package's CPU path), over (..., H, W, C) tensors.
+``remap_bilinear`` is cv2.remap's INTER_LINEAR with a constant border as
+four gathers. The cat's device work is a matrix product per axis
+(``core/linalg.py``); ``binocular_warp_matrix`` and ``binocular_fov_warp``
+are the library's two forms of its warp.
 """
 
 from __future__ import annotations
@@ -191,6 +193,43 @@ def resize(img: torch.Tensor, dst_hw: tuple[int, int], interp: str = "linear") -
     return _apply_taps(_apply_taps(img, taps_y, -3), taps_x, -2)
 
 
+def remap_bilinear(img: torch.Tensor, map_x, map_y, border_value: float = 0.0) -> torch.Tensor:
+    """``cv2.remap(img, map_x, map_y, INTER_LINEAR, BORDER_CONSTANT)`` of
+    (..., H, W, C) with (H_out, W_out) maps of source coordinates (NumPy
+    arrays or tensors): each of the four bilinear taps that falls outside
+    the source contributes ``border_value``. The taps are gathers over the
+    flattened (H W) axis, summed in cv2's order."""
+    h, w, c = (int(s) for s in img.shape[-3:])
+    mx = torch.as_tensor(map_x, dtype=torch.float32, device=img.device)
+    my = torch.as_tensor(map_y, dtype=torch.float32, device=img.device)
+    x0, y0 = torch.floor(mx), torch.floor(my)
+    fx, fy = mx - x0, my - y0
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    flat = img.reshape(*img.shape[:-3], h * w, c)
+
+    def tap(yi, xi):
+        valid = ((xi >= 0) & (xi < w) & (yi >= 0) & (yi < h))[..., None]
+        idx = (torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)).reshape(-1)
+        vals = torch.index_select(flat, -2, idx).reshape(*img.shape[:-3], *mx.shape, c)
+        return torch.where(valid, vals, float(border_value))
+
+    w00, w01 = ((1 - fx) * (1 - fy))[..., None], (fx * (1 - fy))[..., None]
+    w10, w11 = ((1 - fx) * fy)[..., None], (fx * fy)[..., None]
+    return (tap(y0i, x0i) * w00 + tap(y0i, x0i + 1) * w01 + tap(y0i + 1, x0i) * w10
+            + tap(y0i + 1, x0i + 1) * w11)
+
+
+def center_zoom(img: torch.Tensor, scale: float) -> torch.Tensor:
+    """Center-crop (H/scale, W/scale) of (..., H, W, C) and resize back
+    with INTER_LINEAR; the input itself for scale <= 1."""
+    if scale <= 1.0:
+        return img
+    h, w = int(img.shape[-3]), int(img.shape[-2])
+    cw, ch = max(1, int(np.round(w / scale))), max(1, int(np.round(h / scale)))
+    x0, y0 = (w - cw) // 2, (h - ch) // 2
+    return resize(img[..., y0 : y0 + ch, x0 : x0 + cw, :], (h, w), "linear")
+
+
 def panorama_warp(img: torch.Tensor, scale_x: float) -> torch.Tensor:
     """Widen (..., H, W, C) horizontally by ``scale_x`` with INTER_CUBIC and
     center-crop back to W. Only the kept columns' W taps run: the cubic
@@ -325,3 +364,47 @@ def binocular_warp_matrices(
                 m[x0 + 1, x] += wn * fx
         out.append(m.astype(np.float32))
     return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=None)
+def binocular_warp_matrix(
+    in_w: int,
+    out_w: int,
+    fov_in_deg: float,
+    per_eye_half_fov_deg: float,
+    overlap_deg: float,
+    out_h_probe: int = 2,
+) -> np.ndarray:
+    """The binocular FOV warp as one (W_in, W_out) column matrix, the sum
+    of the two eyes' ``binocular_warp_matrices``:
+    ``warped = clip(img01 @ M, 0, 1)`` along W."""
+    ml, mr = binocular_warp_matrices(in_w, out_w, fov_in_deg, per_eye_half_fov_deg, overlap_deg, out_h_probe)
+    return ml + mr
+
+
+@functools.lru_cache(maxsize=16)
+def _device_binocular(in_hw, out_hw, fov_in_deg, per_eye_half_fov_deg, overlap_deg, device: str):
+    """``_binocular_maps`` with the blend weights normalized, on ``device``."""
+    xl, xr, ymap, w_l, w_r = _binocular_maps(in_hw, out_hw, fov_in_deg, per_eye_half_fov_deg, overlap_deg)
+    wsum = w_l + w_r + 1e-8
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+                 for a in (xl, xr, ymap, w_l[..., None], w_r[..., None], wsum[..., None]))
+
+
+def binocular_fov_warp(
+    img01: torch.Tensor,
+    fov_in_deg: float,
+    per_eye_half_fov_deg: float,
+    overlap_deg: float,
+    out_hw: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """Wide-FOV binocular blend of (..., H, W, C): each eye's yaw remap
+    (bilinear, black border) weighted by cos^2 and its validity, the sum
+    normalized and clipped to [0, 1]."""
+    h, w = int(img01.shape[-3]), int(img01.shape[-2])
+    out_hw = (h, w) if out_hw is None else (int(out_hw[0]), int(out_hw[1]))
+    xl, xr, ymap, w_l, w_r, wsum = _device_binocular(
+        (h, w), out_hw, float(fov_in_deg), float(per_eye_half_fov_deg), float(overlap_deg), str(img01.device))
+    left = remap_bilinear(img01, xl, ymap, 0.0)
+    right = remap_bilinear(img01, xr, ymap, 0.0)
+    return torch.clamp((left * w_l + right * w_r) / wsum, 0.0, 1.0)

@@ -1,8 +1,8 @@
 """Species registry: slug -> Animal, one cached instance per (slug, device).
 
-Counterpart of ``animal_vision_tpu/species/__init__.py`` for the 20 non-UV
-species and the UV species ported so far (``PORTED_UV_NAMES``). Entry
-points run on the CUDA card unless the caller passes ``device="cpu"``.
+Counterpart of ``animal_vision_tpu/species/__init__.py``: all 36 species,
+the 20 non-UV ones and the 16 UV ones (``PORTED_UV_NAMES``). Entry points
+run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
 from animal_vision_tpu_torch.species.uv.mantis_shrimp import MantisShrimp
 from animal_vision_tpu_torch.species.uv.morpho import Morpho
 from animal_vision_tpu_torch.species.uv.pieris import Pieris
+from animal_vision_tpu_torch.species.uv.rat_uv import RatUV
 from animal_vision_tpu_torch.species.uv.reindeer import Reindeer
 
 _FACTORIES: dict[str, Callable[[torch.device], Animal]] = {}
@@ -93,6 +94,7 @@ def _morpho(device: torch.device) -> Morpho:
 
 register("honeybee", "HoneyBee", HoneyBee)
 register("reindeer", "ReinDeer", Reindeer)
+register("rat_uv", "RatUV", RatUV)
 register("goldfish", "GoldFish", Goldfish)
 register("damselfish", "DamselFish", Damselfish)
 register("anableps", "Anableps (Four-eyed fish)", Anableps)
@@ -107,9 +109,8 @@ register("jumping_spider", "Jumping Spider", JumpingSpider)
 register("dragonfly", "DragonFly", Dragonfly)
 register("hummingbird", "HummingBird", Hummingbird)
 
-# The JAX package's gallery groupings, in its order, listing only the UV
-# species ported so far (all but rat_uv).
-UV_NAMES = ["honeybee", "reindeer", "goldfish", "damselfish", "anableps", "anchovy", "guppy", "morpho",
+# The JAX package's gallery groupings, in its order.
+UV_NAMES = ["honeybee", "reindeer", "rat_uv", "goldfish", "damselfish", "anableps", "anchovy", "guppy", "morpho",
             "heliconius", "pieris"]
 UNIQUE_UV_NAMES = ["mantis_shrimp", "kestrel", "jumping_spider", "dragonfly", "hummingbird"]
 PORTED_UV_NAMES = UV_NAMES + UNIQUE_UV_NAMES

@@ -37,9 +37,11 @@ from animal_vision_tpu_torch.spectral import classic
 def _integrate_maps(lin: torch.Tensor, g: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
     """relu(lin @ G) @ W: the analytic cube contracted to band maps.
 
-    The JAX package's ``nb <= 100`` branch, the only one the ported species
-    reach (81 bands). Its planar form for more bands (rat_uv's 129) sums
-    the same products in another order and is not ported yet."""
+    The JAX package's ``nb <= 100`` branch, used for every band count: its
+    planar form for more bands (rat_uv's 129) is an XLA input-fusion trick
+    that recomputes the cube per map so that it never reaches HBM; it sums
+    the same products in another order, and the two products here stay
+    within its bars (``tests/test_torch_rat_uv.py``)."""
     return linalg.frame_matmul(torch.clamp(linalg.frame_matmul(lin, g), min=0.0), wmat)
 
 

@@ -1,9 +1,10 @@
-"""Band weights, illuminant and von Kries adaptation.
+"""Band weights, band integrals, illuminant and von Kries adaptation.
 
 Counterpart of ``animal_vision_tpu/spectral/bands.py``. The weight and
-illuminant tables are NumPy, identical to the JAX package's; the von Kries
-maps are (..., H, W, 1) tensors, each divided by its own frame's max or
-mean."""
+illuminant tables are NumPy, identical to the JAX package's; the band
+integrals contract an explicit (..., H, W, B) cube to an (..., H, W, 1)
+map; the von Kries maps are (..., H, W, 1) tensors, each divided by its own
+frame's max or mean."""
 
 from __future__ import annotations
 
@@ -11,6 +12,10 @@ import functools
 
 import numpy as np
 import torch
+
+from animal_vision_tpu_torch.core import linalg
+from animal_vision_tpu_torch.core.stats import safe_norm
+from animal_vision_tpu_torch.core.tables import device_table
 
 EPS_DEFAULT = 1e-8
 
@@ -31,6 +36,18 @@ def bandpass_weights(lambdas: tuple, lo: float, hi: float) -> np.ndarray:
     else:
         w = np.ones_like(wl) / float(wl.size)
     return w
+
+
+def integrate_band(hsi: torch.Tensor, lambdas: np.ndarray, lo: float, hi: float) -> torch.Tensor:
+    """The raised-cosine band integral of an (..., H, W, B) cube, as an
+    (..., H, W, 1) map."""
+    w = bandpass_weights(tuple(float(v) for v in np.asarray(lambdas)), lo, hi)
+    return linalg.frame_matmul(hsi.to(torch.float32), device_table(w[:, None], hsi.device))
+
+
+def integrate_uv(hsi: torch.Tensor, lambdas: np.ndarray, lo: float, hi: float) -> torch.Tensor:
+    """``integrate_band``, min-max normalized per frame."""
+    return safe_norm(integrate_band(hsi, lambdas, lo, hi))
 
 
 def d65_like(lambdas_nm: np.ndarray) -> np.ndarray:

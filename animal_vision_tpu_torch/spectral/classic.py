@@ -7,13 +7,21 @@ total lobe response, i.e. ``cube = relu(linear(rgb) @ G)`` for a constant
 (3, B) matrix G. The reference's channel-naming quirk is kept: it names its
 input BGR but is fed RGB, so channel 0 drives the 460 nm lobe. Every
 species integrates the cube against band weights at once, so it folds to
-``linear(rgb) @ (G @ W)`` (``fused_band_matrix``). The Mallett 2019 mode
-and its table are not ported yet.
+``linear(rgb) @ (G @ W)`` (``fused_band_matrix``).
+
+``mode="mallett"`` is the reference's CPU path, Mallett & Yuksel 2019's
+recovery ``sd = r B_r + g B_g + b B_b``: equally linear, so the same
+products with the (3, B) basis in G's place. The basis is the package's
+own table, ``spectral/data/mallett2019_basis_5nm.npz`` (solved against
+``spectral/colorimetry.py``), interpolated linearly onto the caller's
+grid. Unlike the analytic mode, channel 0 drives the red basis: each mode
+keeps its own reference path's channel order.
 """
 
 from __future__ import annotations
 
 import functools
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -22,6 +30,7 @@ from animal_vision_tpu_torch.core import color, linalg
 
 _CENTERS = (610.0, 545.0, 460.0)  # R, G, B lobe centers (nm)
 _SIGMAS = (60.0, 60.0, 55.0)
+DATA = Path(__file__).resolve().parent / "data"
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,11 +59,37 @@ def check_uniform(wavelengths: np.ndarray) -> float:
     return step
 
 
-def _check_mode(mode: str) -> None:
+@functools.lru_cache(maxsize=None)
+def _mallett_table(source: str = "derived"):
+    """(5 nm wavelengths, (3, 81) basis) of Mallett 2019. ``source=
+    "published"`` reads colour-science's own tabulation from
+    ``data/mallett2019_published_5nm.npz`` (keys ``wl``, ``basis`` (N, 3)),
+    which the repository does not hold: it raises FileNotFoundError."""
+    if source == "published":
+        with np.load(DATA / "mallett2019_published_5nm.npz") as z:
+            return z["wl"].copy(), z["basis"].T.copy()
+    with np.load(DATA / "mallett2019_basis_5nm.npz") as z:
+        return z["wavelengths"].copy(), z["basis"].copy()
+
+
+@functools.lru_cache(maxsize=None)
+def mallett_basis_matrix(wavelengths: tuple, dtype=np.float32) -> np.ndarray:
+    """(3, B) Mallett 2019 basis on the requested grid: linear
+    interpolation of the 5 nm table, clamped to its ends outside
+    380-780 nm."""
+    wl_tab, basis = _mallett_table()
+    wl = np.asarray(wavelengths, dtype=np.float64)
+    return np.stack([np.interp(wl, wl_tab, basis[i]) for i in range(3)], axis=0).astype(dtype)
+
+
+def upsampler_matrix(wavelengths: np.ndarray, mode: str, dtype=np.float32) -> np.ndarray:
+    """The (3, B) matrix of ``mode`` ("analytic" or "mallett") on a grid."""
+    key = tuple(float(v) for v in np.asarray(wavelengths))
+    if mode == "analytic":
+        return lobe_matrix(key, dtype=dtype)
     if mode == "mallett":
-        raise NotImplementedError("the Mallett 2019 upsampler is not ported yet; use mode='analytic'")
-    if mode != "analytic":
-        raise ValueError(f"mode must be 'analytic' or 'mallett', got {mode!r}")
+        return mallett_basis_matrix(key, dtype=dtype)
+    raise ValueError(f"mode must be 'analytic' or 'mallett', got {mode!r}")
 
 
 def classic_rgb_to_hsi(
@@ -69,8 +104,7 @@ def classic_rgb_to_hsi(
     if wavelengths is None:
         wavelengths = np.linspace(400.0, 700.0, 31, dtype=np.float32)
     check_uniform(np.asarray(wavelengths))
-    _check_mode(mode)
-    g = torch.from_numpy(lobe_matrix(tuple(float(v) for v in np.asarray(wavelengths)))).to(frame.device)
+    g = torch.from_numpy(upsampler_matrix(wavelengths, mode)).to(frame.device)
     x = frame.to(torch.float32)
     if linearize:
         x = color.srgb_to_linear(x)
@@ -82,8 +116,7 @@ def fused_band_matrix(wavelengths: np.ndarray, weight_vectors: np.ndarray, mode:
     linearized RGB without the cube (exact up to float association, since
     both maps are linear)."""
     check_uniform(np.asarray(wavelengths))
-    _check_mode(mode)
-    g = lobe_matrix(tuple(float(v) for v in np.asarray(wavelengths)), dtype=np.float64)
+    g = upsampler_matrix(wavelengths, mode, np.float64)
     w = np.asarray(weight_vectors, dtype=np.float64)
     if w.ndim == 1:
         w = w[:, None]

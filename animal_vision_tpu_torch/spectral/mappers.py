@@ -1,7 +1,7 @@
 """(U, B, G) cone-catch maps -> displayable linear RGB.
 
-Counterpart of ``animal_vision_tpu/spectral/mappers.py``: ``hsv_to_rgb`` and
-the mappings of the honeybee's five modes. Maps are (..., H, W, 1) tensors;
+Counterpart of ``animal_vision_tpu/spectral/mappers.py``: ``hsv_to_rgb``,
+the mappings of the honeybee's five modes and ``map_uv_purple_yellow``. Maps are (..., H, W, 1) tensors;
 every percentile is per frame (``core/stats.py``); outputs are
 (..., H, W, 3)."""
 
@@ -77,6 +77,14 @@ def map_opponent(u, b, g, eps: float = EPS_DEFAULT) -> torch.Tensor:
 def _s2l(v: np.ndarray) -> np.ndarray:
     a = 0.055
     return np.where(v <= 0.04045, v / 12.92, ((v + a) / (1 + a)) ** 2.4).astype(np.float32)
+
+
+def map_uv_purple_yellow(u, eps: float = EPS_DEFAULT) -> torch.Tensor:
+    """UV-only purple <-> yellow ramp (p99 normalization, gamma 0.85)."""
+    un = torch.clamp(u / torch.clamp(percentile(u, 99.0), min=eps), 0.0, 1.0) ** 0.85
+    c0 = device_table(_s2l(np.array([128, 0, 150], np.float32) / 255.0), u.device)
+    c1 = device_table(_s2l(np.array([255, 225, 60], np.float32) / 255.0), u.device)
+    return torch.clamp((1.0 - un) * c0 + un * c1, 0.0, 1.0)
 
 
 def map_uv_purple_yellow_soft(

@@ -45,12 +45,16 @@ raises on failure:
    frame; the table variants must give the powf variants' bytes;
 4. main path: ``get_animal(name).visualize(frame)`` and
    ``visualize_batch_device`` (4 frames already on the card) at 1080p, first
-   for the 20 non-UV species, then for the ported UV species, with the
+   for the 20 non-UV species, then for the 16 UV species (rat_uv on the
+   same frames with two of the four darkened, so that its batch takes both
+   its day and its night rendering, and each frame of its batch equal to
+   the frame alone), with the
    launch counters set to 0 before and read after each of the two runs;
    each non-UV species against its plain composition on the card (<= 1 LSB)
    and against the CPU path on a small frame (<= 1 LSB), each UV species
    the same at >= 40 dB PSNR with its baseline within 1 LSB; then fps per
-   species and each group's harmonic mean; then MST++ with the shipped
+   species and each group's harmonic mean (the UV group's also without
+   rat_uv, the 15 species of earlier runs); then MST++ with the shipped
    weights: one 1080p forward, kestrel and goldfish with ``attach_mst``
    through both entry points and honeybee with the provider on a 1080p
    frame, counters around the run (14 conv, 15 stats, 15 apply, 6 up_fuse
@@ -63,14 +67,31 @@ raises on failure:
    counters around the run (27 ``ffn`` launches per MST-L forward), each
    against its plain version on the card (forward within 5e-4 of max |y|,
    species >= 40 dB, baselines <= 1 LSB), ms and fps;
+   then the library: the functions no species calls (band integrals,
+   ``map_uv_purple_yellow``, the general Gaussian blurs, ``tapetum_bloom``,
+   ``rod_vision``, ``unsharp_mask``, ``dog_bandpass``, ``remap_bilinear``,
+   ``center_zoom``, the binocular warp, the LMS helpers) and the Mallett
+   upsampler on the card against the port on the CPU (<= 1e-5), with
+   ``unsharp_mask``'s and ``dog_bandpass``'s ``blur_uv`` launches counted;
 5. profile: ``torch.profiler`` device time by name beside the host-clock
    time for one non-UV species per kernel (the pig and the rat for the
    pointwise kernel's two instances), the cat and the UV species,
    through each entry point, the 1080p MST++ forward, kestrel with MST++,
    the 1080p MST-L forward and mantis shrimp with MST-L;
-6. summary: one JSON line with each kernel (``pointwise_u8`` with its
+6. degrade: ``visualize``'s degradation ladder. With
+   ``ANIMAL_VISION_MAX_PIXELS=1000000`` the dog, the cat, rat_uv and
+   kestrel on a 1080p frame take rung 1024, build no full-size program
+   and equal the explicit composition (host area-down, ``visualize``, host
+   linear-up) bit for bit; then, with a tensor holding all of the card's
+   memory but 1 GiB, rat_uv on a 2160x3840 frame runs the device out of
+   memory, goes down the ladder and equals the composition at the rung it
+   took; with the memory released the same frame takes the exact path.
+   After every other phase the count of frames served by the ladder must
+   be 0;
+7. summary: one JSON line with each kernel (``pointwise_u8`` with its
    share of the bytes bound and its ratio to the ablation's copy of the
-   same number of frames), then, as the last line,
+   same number of frames; ``blur_uv`` with rat_uv's cases, C = 3 and
+   k = 7 and 9 at 1080p), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device. A detailed
@@ -82,6 +103,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -122,7 +144,7 @@ UV_REPS = 10
 UV_MIN_DB = 40.0
 # one non-UV species per kernel (both of the pointwise kernel's), the cat's
 # products, and the UV species
-PROFILE_SPECIES = ("dog", "deer", "rat", "pig", "cat", "honeybee", "reindeer", "goldfish", "kestrel")
+PROFILE_SPECIES = ("dog", "deer", "rat", "pig", "cat", "honeybee", "reindeer", "goldfish", "kestrel", "rat_uv")
 PROFILE_REPS = 5
 # MST++: (padded frame, frames per call) of the two operating points
 MST_POINTS = {"1080p": ((1080, 1920), 1), "272x480": ((272, 480), BATCH)}
@@ -176,6 +198,17 @@ REPLACES = {
     "up_fuse_kernel": "animal_vision_tpu/ops/fused_msab.py:848",
     "ffn_kernel": "animal_vision_tpu/ops/fused_mst.py:54",
 }
+# the degradation ladder: the budget part's species and pixel budget; the real
+# OOM's frame and the device memory left free beside the tensor that holds
+# the rest (rat_uv's exact path at 2160x3840 needs two 1.29 GB cubes)
+DEGRADE_SPECIES = ("dog", "cat", "rat_uv", "kestrel")
+DEGRADE_BUDGET = 1_000_000
+OOM_HW = (2160, 3840)
+OOM_FREE_BYTES = 1 << 30
+# the library phase: frame size, and the bar of each function on the card
+# against the port on the CPU
+LIBRARY_HW = (540, 960)
+LIBRARY_TOL = 1e-5
 REPORT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_report.json"
 
 
@@ -237,11 +270,24 @@ def reset_counters() -> None:
     from animal_vision_tpu_torch.ops import fused_msab as M
     from animal_vision_tpu_torch.ops import fused_mst as T
     from animal_vision_tpu_torch.ops import fused_nonuv as F
+    from animal_vision_tpu_torch.species import base
 
     F.reset_launches()
     B.reset_launches()
     M.reset_launches()
     T.reset_launches()
+    base.reset_rungs()
+
+
+def no_rungs(phase: str) -> None:
+    """Fail if ``visualize`` took the degradation ladder since the last
+    reset: outside the degrade phase the ladder must not hide a failure."""
+    from animal_vision_tpu_torch.species import base
+
+    if base.rungs_taken():
+        raise AssertionError(f"{phase}: the degradation ladder was taken: {base.RUNGS}")
+    log(f"[{phase}] rungs taken: 0")
+    base.reset_rungs()
 
 
 def counters() -> dict:
@@ -881,20 +927,23 @@ def ablation_phase(device: torch.device, hw=MAIN_HW, frames=PROBE_FRAMES, varian
 # ---------------------------------------------------------------------------
 
 
-def counted_run(animals: dict, host: np.ndarray, frames: torch.Tensor, device: torch.device):
+def counted_run(animals: dict, host: np.ndarray, frames: torch.Tensor, device: torch.device, inputs=None):
     """The run the launch counters are read around: the counters set to 0,
     then once through each entry point per species (``host[0]`` through
-    ``visualize``, ``frames`` through ``visualize_batch_device``) with the
-    plain versions barred from CUDA tensors, then the counters read.
+    ``visualize``, ``frames`` through ``visualize_batch_device``, or the
+    species' own (host, frames) in ``inputs``) with the plain versions
+    barred from CUDA tensors, then the counters read.
     Returns (launches per species, outputs per species, launches)."""
     per_species = {}
     outputs = {}
+    inputs = inputs or {}
     with plain_forbidden_on_cuda():
         reset_counters()
         for name, animal in animals.items():
+            own_host, own_frames = inputs.get(name, (host, frames))
             before = counters()
-            base1, out1 = animal.visualize(host[0])
-            base_b, out_b = animal.visualize_batch_device(frames)
+            base1, out1 = animal.visualize(own_host[0])
+            base_b, out_b = animal.visualize_batch_device(own_frames)
             per_species[name] = {k: v - before[k] for k, v in counters().items()}
             outputs[name] = (base1, out1, base_b, out_b)
         sync(device)
@@ -974,34 +1023,53 @@ def main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MAIN_REP
 
 def uv_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=UV_REPS,
                        small_hw=SMALL_HW) -> dict:
-    """The ported UV species through both entry points, counters around the
+    """The 16 UV species through both entry points, counters around the
     run; each against its plain composition on the card and against the CPU
-    path on a small frame (>= 40 dB, baselines within 1 LSB); fps."""
+    path on a small frame (>= 40 dB, baselines within 1 LSB); fps. rat_uv
+    gets the same frames with the second and fourth darkened to 5% (night
+    by its median luma), so that its batch takes both renderings; each
+    frame of its batch must equal the frame through ``visualize``."""
     from animal_vision_tpu_torch.species import PORTED_UV_NAMES, get_animal
+    from animal_vision_tpu_torch.species.uv.rat_uv import RatUV
 
     rng = np.random.default_rng(SEED + 3)
     h, w = hw
     host = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
     frames = torch.from_numpy(host).to(device)
+    rat_host = host.copy()
+    rat_host[1::2] = (rat_host[1::2] * 0.05).astype(np.uint8)
+    rat_frames = torch.from_numpy(rat_host).to(device)
+    nights = RatUV.is_night(rat_frames).flatten().tolist()
+    if nights != [i % 2 == 1 for i in range(batch)]:
+        raise AssertionError(f"rat_uv: night frames {nights}, expected every second one")
+    inputs = {"rat_uv": (rat_host, rat_frames)}
     animals = {name: get_animal(name, device) for name in PORTED_UV_NAMES}
     sync(device)
 
-    per_species_launches, outputs, launches = counted_run(animals, host, frames, device)
+    per_species_launches, outputs, launches = counted_run(animals, host, frames, device, inputs)
     log(f"[main] launches over the UV main-path run: {launches}")
 
     results = {}
     for name, animal in animals.items():
+        own_host, own_frames = inputs.get(name, (host, frames))
         moved = per_species_launches[name]
         if device.type == "cuda" and (moved["blur_uv"] < 2 or sum(moved.values()) != moved["blur_uv"]):
             raise AssertionError(f"{name}: expected blur_uv launches only, counted {moved}")
         base1, out1, base_b, out_b = outputs[name]
         if out1.shape != (h, w, 3) or out1.dtype != np.uint8 or tuple(out_b.shape) != (batch, h, w, 3):
             raise AssertionError(f"{name}: output {out1.shape} {out1.dtype}, batch {tuple(out_b.shape)}")
-        plain_base, plain = animal.plain_transform((h, w, 3), np.uint8)(frames)
+        plain_base, plain = animal.plain_transform((h, w, 3), np.uint8)(own_frames)
         db = min(psnr_db(out_b, plain), psnr_db(torch.from_numpy(out1), plain[0]))
         lsb = max(max_lsb(out_b, plain), max_lsb(torch.from_numpy(out1).to(device), plain[0]))
         base_lsb = max(max_lsb(base_b, plain_base), max_lsb(torch.from_numpy(base1).to(device), plain_base[0]))
         batch_vs_frame = max_lsb(out_b[0], torch.from_numpy(out1).to(device))
+        if name in inputs:
+            # every frame of the batch against the frame alone, bit for bit
+            for i in range(1, batch):
+                batch_vs_frame = max(batch_vs_frame, max_lsb(out_b[i], torch.from_numpy(
+                    animal.visualize(own_host[i])[1]).to(device)))
+            if batch_vs_frame != 0:
+                raise AssertionError(f"{name}: a frame of the batch is {batch_vs_frame} LSB from the frame alone")
         small = rng.integers(0, 256, (*small_hw, 3), dtype=np.uint8)
         ref_b, ref = get_animal(name, "cpu").visualize(small)
         got_b, got = animal.visualize(small)
@@ -1012,11 +1080,11 @@ def uv_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=UV_RE
             raise AssertionError(f"{name}: {db:.2f} dB from the plain path at {h}x{w} (baseline {base_lsb} LSB), "
                                  f"{small_db:.2f} dB from the CPU path at {small_hw} (baseline {small_base_lsb} LSB)")
 
-        def one(animal=animal):
-            animal.visualize(host[0])
+        def one(animal=animal, own_host=own_host):
+            animal.visualize(own_host[0])
 
-        def batched(animal=animal):
-            animal.visualize_batch_device(frames)
+        def batched(animal=animal, own_frames=own_frames):
+            animal.visualize_batch_device(own_frames)
             sync(device)
 
         vis = wall_ms(one, reps)
@@ -1028,15 +1096,22 @@ def uv_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=UV_RE
             visualize_ms=vis, visualize_fps=1e3 / vis["median"],
             batch_ms=bat, batch_fps=batch * 1e3 / bat["median"],
         )
+        frames_note = "batch vs visualize (all frames)" if name in inputs else "batch[0] vs visualize"
         log(f"[main] {name:<9} blur_uv x{moved['blur_uv']:<3} {db:.2f} dB / max {lsb} LSB vs plain (baseline "
             f"{base_lsb} LSB), {small_db:.2f} dB / max {small_lsb} LSB vs CPU at {small_hw[0]}x{small_hw[1]}; "
-            f"batch[0] vs visualize max {batch_vs_frame} LSB; visualize {results[name]['visualize_fps']:7.1f} fps "
+            f"{frames_note} max {batch_vs_frame} LSB; visualize {results[name]['visualize_fps']:7.1f} fps "
             f"(median {vis['median']:.3f} ms, p90 {vis['p90']:.3f} ms), batch of {batch} on device "
             f"{results[name]['batch_fps']:7.1f} fps (median {bat['median']:.3f} ms, p90 {bat['p90']:.3f} ms, "
             f"n={bat['n']})")
-    hm = len(results) / sum(1.0 / r["batch_fps"] for r in results.values())
-    hm_vis = len(results) / sum(1.0 / r["visualize_fps"] for r in results.values())
-    return dict(species=results, launches=launches, hm_fps=hm, hm_visualize_fps=hm_vis)
+
+    def harmonic(names, key):
+        return len(names) / sum(1.0 / results[n][key] for n in names)
+
+    earlier = [n for n in results if n != "rat_uv"]
+    return dict(species=results, launches=launches, hm_fps=harmonic(list(results), "batch_fps"),
+                hm_visualize_fps=harmonic(list(results), "visualize_fps"),
+                hm_fps_without_rat_uv=harmonic(earlier, "batch_fps"),
+                hm_visualize_fps_without_rat_uv=harmonic(earlier, "visualize_fps"))
 
 
 def mst_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MST_FORWARD_REPS,
@@ -1293,6 +1368,159 @@ def profile_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, names=PROFILE_S
     return out
 
 
+def degrade_phase(device: torch.device, hw=MAIN_HW, names=DEGRADE_SPECIES, budget=DEGRADE_BUDGET,
+                  oom_hw=OOM_HW, free_bytes=OOM_FREE_BYTES) -> dict:
+    """The degradation ladder of ``visualize``. Budget part: with
+    ``ANIMAL_VISION_MAX_PIXELS`` set, each species (a fresh instance) on a
+    1080p frame takes rung 1024 (576x1024), builds no full-size program and
+    equals the explicit composition (host area-down, ``visualize``, host
+    linear-up) bit for bit. Real OOM: a tensor holds all of the card's free
+    memory but ``free_bytes``; rat_uv on a 2160x3840 frame must go down the
+    ladder and equal the composition at the rung it took; with the tensor
+    released, the same frame must take the exact path."""
+    import gc
+    import os
+
+    from animal_vision_tpu_torch.species import base
+    from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS, Cat, NonUVAnimal
+    from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
+    from animal_vision_tpu_torch.species.uv.rat_uv import RatUV
+
+    make = {"dog": lambda: NonUVAnimal(NONUV_SPECS["dog"], device), "cat": lambda: Cat(device),
+            "rat_uv": lambda: RatUV(device), "kestrel": lambda: Kestrel(device)}
+    rng = np.random.default_rng(SEED + 6)
+
+    def composition(animal, image, side):
+        h, w = image.shape[:2]
+        sh, sw = base.rung_shape(h, w, side)
+        b, o = animal.visualize(base.host_resize(image, sh, sw, "area"))
+        return base.host_resize(b, h, w, "linear"), base.host_resize(o, h, w, "linear")
+
+    def taken(before):
+        moved = [side for side in base.RUNGS if base.RUNGS[side] != before[side]]
+        if len(moved) != 1 or base.RUNGS[moved[0]] != before[moved[0]] + 1:
+            raise AssertionError(f"expected one frame served at one rung, rungs {before} -> {base.RUNGS}")
+        return moved[0]
+
+    host = rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+    full = (*hw, 3)
+    budget_rows = {}
+    for name in names:
+        animal = make[name]()
+        before = dict(base.RUNGS)
+        os.environ["ANIMAL_VISION_MAX_PIXELS"] = str(budget)
+        try:
+            t0 = time.perf_counter()
+            got = animal.visualize(host)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            del os.environ["ANIMAL_VISION_MAX_PIXELS"]
+        side = taken(before)
+        shapes = sorted({k[0] for k in animal._programs})
+        want = composition(animal, host, side)
+        equal = all(np.array_equal(g, x) for g, x in zip(got, want))
+        if side != 1024 or full in shapes or not equal or got[1].shape != full:
+            raise AssertionError(f"{name} under a budget of {budget} px: rung {side}, programs {shapes}, "
+                                 f"equal to the composition: {equal}")
+        budget_rows[name] = dict(rung=side, programs=shapes, equal=equal, first_call_ms=ms)
+        log(f"[degrade] {name:<8} ANIMAL_VISION_MAX_PIXELS={budget} at {hw[0]}x{hw[1]}: rung {side} "
+            f"({shapes}), equal to the composition bit for bit; first call {ms:.1f} ms")
+
+    rat = make["rat_uv"]()
+    big = rng.integers(0, 256, (*oom_hw, 3), dtype=np.uint8)
+    gc.collect()
+    sync(device)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(device)
+    hold = torch.empty(free - free_bytes, dtype=torch.uint8, device=device)
+    left = torch.cuda.mem_get_info(device)[0]
+    before = dict(base.RUNGS)
+    t0 = time.perf_counter()
+    got = rat.visualize(big)
+    ladder_ms = (time.perf_counter() - t0) * 1e3
+    side = taken(before)
+    shapes = sorted({k[0] for k in rat._programs})
+    del hold
+    torch.cuda.empty_cache()
+    want = composition(rat, big, side)
+    equal = all(np.array_equal(g, x) for g, x in zip(got, want))
+    if (*oom_hw, 3) in shapes or not equal or got[1].shape != (*oom_hw, 3):
+        raise AssertionError(f"rat_uv on {oom_hw} with {left} bytes free: rung {side}, programs {shapes}, "
+                             f"equal to the composition: {equal}")
+    log(f"[degrade] rat_uv {oom_hw[0]}x{oom_hw[1]} with {left / 2**30:.3f} GiB of {total / 2**30:.1f} GiB free: "
+        f"device OOM, rung {side} ({shapes}), equal to the composition bit for bit; {ladder_ms:.1f} ms")
+    before = dict(base.RUNGS)
+    t0 = time.perf_counter()
+    exact = rat.visualize(big)
+    exact_ms = (time.perf_counter() - t0) * 1e3
+    if base.RUNGS != before or (*oom_hw, 3) not in {k[0] for k in rat._programs}:
+        raise AssertionError(f"rat_uv on {oom_hw} with the memory released did not take the exact path")
+    db = psnr_db(torch.from_numpy(got[1]), torch.from_numpy(exact[1]))
+    log(f"[degrade] rat_uv {oom_hw[0]}x{oom_hw[1]} with the memory released: exact path, {exact_ms:.1f} ms; "
+        f"the ladder's output {db:.2f} dB from it")
+    base.reset_rungs()
+    return dict(budget=budget, budget_species=budget_rows,
+                oom=dict(hw=oom_hw, free_bytes=left, total_bytes=total, rung=side, programs=shapes, equal=equal,
+                         ladder_ms=ladder_ms, exact_ms=exact_ms, psnr_vs_exact_db=db))
+
+
+def library_phase(device: torch.device, hw=LIBRARY_HW, batch=BATCH // 2, tol=LIBRARY_TOL) -> dict:
+    """The library functions that no species calls, and the Mallett
+    upsampler, on the card against the port on the CPU (max abs error
+    <= ``tol``), on a batch of float32 frames in [0, 1] (maps as one
+    channel); ``unsharp_mask`` and ``dog_bandpass`` launch ``blur_uv``
+    (1 and 2 launches), counted around their calls."""
+    from animal_vision_tpu_torch.core import blur, color, effects, geometry
+    from animal_vision_tpu_torch.ops import fused_blur as B
+    from animal_vision_tpu_torch.spectral import bands, classic, mappers
+
+    h, w = hw
+    rng = np.random.default_rng(SEED + 7)
+    x = torch.from_numpy(rng.random((batch, h, w, 3), dtype=np.float32))
+    m = x[..., :1].contiguous()
+    cube = torch.from_numpy(rng.random((batch, h // 4, w // 4, 81), dtype=np.float32))
+    lam = np.linspace(300.0, 700.0, 81, dtype=np.float32)
+    map_x = rng.uniform(-5, w + 5, (h, w)).astype(np.float32)
+    map_y = rng.uniform(-5, h + 5, (h, w)).astype(np.float32)
+    fns = {
+        "integrate_band": (lambda c: bands.integrate_band(c, lam, 320.0, 400.0), cube),
+        "integrate_uv": (lambda c: bands.integrate_uv(c, lam, 320.0, 400.0), cube),
+        "map_uv_purple_yellow": (mappers.map_uv_purple_yellow, m),
+        "gaussian_blur": (lambda t: blur.gaussian_blur(t, 1.3, 2.1), x),
+        "gaussian_blur_hw": (lambda t: blur.gaussian_blur_hw(t, 1.7), x[..., 0].contiguous()),
+        "tapetum_bloom": (effects.tapetum_bloom, x),
+        "rod_vision": (effects.rod_vision, x),
+        "unsharp_mask": (lambda t: effects.unsharp_mask(t, 1.0, 0.3), x),
+        "dog_bandpass": (lambda t: effects.dog_bandpass(t, 0.8, 2.5), m),
+        "remap_bilinear": (lambda t: geometry.remap_bilinear(t, map_x, map_y), x),
+        "center_zoom": (lambda t: geometry.center_zoom(t, 1.37), x),
+        "binocular_fov_warp": (lambda t: geometry.binocular_fov_warp(t, 100.0, 105.0, 40.0), x),
+        "merge_l_m": (lambda t: color.merge_l_m(t, 0.58), x),
+        "srgb_to_lms": (color.srgb_to_lms, x),
+        "lms_to_rgb": (color.lms_to_rgb, x),
+        "classic_rgb_to_hsi mallett": (lambda t: classic.classic_rgb_to_hsi(t, lam, mode="mallett"), x),
+    }
+    expected_launches = {"unsharp_mask": 1, "dog_bandpass": 2}
+    rows = {}
+    with plain_forbidden_on_cuda():
+        for name, (fn, inp) in fns.items():
+            before = B.LAUNCHES["blur_uv"]
+            got = fn(inp.to(device))
+            sync(device)
+            launches = B.LAUNCHES["blur_uv"] - before
+            want = fn(inp)
+            err = (got.cpu() - want).abs().max().item()
+            ms = time_ms(lambda fn=fn, t=inp.to(device): fn(t), 5, device)
+            want_launches = expected_launches.get(name, 0) if device.type == "cuda" else 0
+            if not err <= tol or launches != want_launches or got.shape != want.shape:
+                raise AssertionError(f"{name}: {err} from the CPU, {launches} blur_uv launches, "
+                                     f"shape {tuple(got.shape)}")
+            rows[name] = dict(max_abs_err=err, blur_uv_launches=launches, ms=ms, shape=list(got.shape))
+            log(f"[library] {name:<27} {tuple(inp.shape)} -> {tuple(got.shape)}: max {err:.3g} from the CPU, "
+                f"blur_uv x{launches}, {ms:.3f} ms")
+    return rows
+
+
 def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], ffn_rows: list[dict],
             launches: dict, ablation: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
@@ -1324,13 +1552,16 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
     k, c = BLUR_REPRESENTATIVE
     rep = next(r for r in blur_rows if (r["ksize"], r["channels"], r["h"], r["w"]) == (k, c, *MAIN_HW))
     worst = max((r for r in blur_rows if r["library_ratio"] is not None), key=lambda r: r["library_ratio"])
+    rat_uv = [dict(case=r["case"], ms=r["ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                   library_ms=r["library_ms"], plain_ms=r["plain_ms"])
+              for r in blur_rows if r["channels"] == 3 and r["ksize"] in (7, 9) and (r["h"], r["w"]) == MAIN_HW]
     out.append(dict(
         name="blur_uv", route="cuda", source=SOURCES["blur_uv"], replaces=REPLACES["blur_uv"],
         launches=launches["blur_uv"], max_abs_err=max(r["max_abs_err"] for r in blur_rows),
         case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']} frames",
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
         library_ms=rep["library_ms"], library_ratio_worst=worst["library_ratio"],
-        library_ratio_worst_case=f"{worst['case']} {worst['h']}x{worst['w']}",
+        library_ratio_worst_case=f"{worst['case']} {worst['h']}x{worst['w']}", rat_uv_cases=rat_uv,
     ))
     for kernel, case in MST_REPRESENTATIVE.items():
         rows = [r for r in mst_rows if r["kernel"] == kernel]
@@ -1374,16 +1605,27 @@ def main() -> int:
     device = torch.device("cuda")
     info = device_phase()
     build = build_phase()
+    os.environ.pop("ANIMAL_VISION_MAX_PIXELS", None)
+    reset_counters()
     kernel_rows = kernels_phase(device)
     blur_rows = blur_phase(device)
     mst_rows = mst_kernels_phase(device)
     ffn_rows = ffn_phase(device)
     ablation = ablation_phase(device)
+    no_rungs("kernels")
     main_run = main_path_phase(device)
+    no_rungs("main")
     uv_run = uv_main_path_phase(device)
+    no_rungs("main uv")
     mst_run = mst_main_path_phase(device)
+    no_rungs("main mst++")
     mst_l_run = mst_l_main_path_phase(device)
+    no_rungs("main mst-l")
+    library_run = library_phase(device)
+    no_rungs("library")
     profile_run = profile_phase(device)
+    no_rungs("profile")
+    degrade_run = degrade_phase(device)
     if any(m.startswith("jax") or m == "animal_vision_tpu" or m.startswith("animal_vision_tpu.")
            for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -1391,7 +1633,9 @@ def main() -> int:
         f"{main_run['hm_fps']:.1f} fps; through visualize (host round trip): "
         f"{main_run['hm_visualize_fps']:.1f} fps; card: {info['card']}")
     log(f"[main] {len(uv_run['species'])}-UV-species harmonic mean at {MAIN_HW[0]}x{MAIN_HW[1]}, batch of {BATCH} "
-        f"on the device: {uv_run['hm_fps']:.1f} fps; through visualize: {uv_run['hm_visualize_fps']:.1f} fps")
+        f"on the device: {uv_run['hm_fps']:.1f} fps ({len(uv_run['species']) - 1} without rat_uv: "
+        f"{uv_run['hm_fps_without_rat_uv']:.1f} fps); through visualize: {uv_run['hm_visualize_fps']:.1f} fps "
+        f"({uv_run['hm_visualize_fps_without_rat_uv']:.1f} fps)")
     launches = {**main_run["launches"], "blur_uv": uv_run["launches"]["blur_uv"],
                 **{k: mst_run["launches"][k] for k in MST_PER_FORWARD}, "ffn_kernel": mst_l_run["launches"]["ffn"]}
     kernels = summary(kernel_rows, blur_rows, mst_rows, ffn_rows, launches, ablation)
@@ -1400,7 +1644,7 @@ def main() -> int:
                                       blur_cases=blur_rows,
                                       mst_cases=mst_rows, ffn_cases=ffn_rows, main_path=main_run,
                                       uv_main_path=uv_run, mst_main_path=mst_run, mst_l_main_path=mst_l_run,
-                                      profile=profile_run,
+                                      library=library_run, profile=profile_run, degrade=degrade_run,
                                       kernels=kernels["kernels"], seconds=time.perf_counter() - t0), indent=1))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(info["card"])

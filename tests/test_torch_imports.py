@@ -52,10 +52,10 @@ def test_port_imports_no_jax_package_or_cv2():
         "animal_vision_tpu_torch.ops.fused_msab", "animal_vision_tpu_torch.models.mst_plus_plus",
         "animal_vision_tpu_torch.models.providers",
         "animal_vision_tpu_torch.ops.fused_mst", "animal_vision_tpu_torch.models.mst",
-        "animal_vision_tpu_torch.models.zoo",
+        "animal_vision_tpu_torch.models.zoo", "animal_vision_tpu_torch.spectral.colorimetry",
     } | {f"animal_vision_tpu_torch.species.uv.{n}" for n in (
         "mantis_shrimp", "jumping_spider", "dragonfly", "hummingbird", "damselfish", "anableps", "anchovy",
-        "guppy", "morpho", "heliconius", "pieris")}
+        "guppy", "morpho", "heliconius", "pieris", "rat_uv")}
     assert expected <= set(report["modules"])
 
 

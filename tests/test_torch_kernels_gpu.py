@@ -21,7 +21,7 @@ from animal_vision_tpu_torch.ops import fused_msab as M
 from animal_vision_tpu_torch.ops import fused_mst as T
 from animal_vision_tpu_torch.ops import fused_nonuv as F
 from animal_vision_tpu_torch.species import NON_UV_NAMES, PORTED_UV_NAMES, get_animal
-from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS, Cat
+from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS, Cat, NonUVAnimal
 from animal_vision_tpu_torch.species.uv.goldfish import Goldfish
 from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
 from animal_vision_tpu_torch.species.uv.mantis_shrimp import MantisShrimp
@@ -740,3 +740,61 @@ def test_uv_species_with_mst_l_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, c
     assert T.LAUNCHES["ffn"] == before + 27
     _, out_c = attach_model(cls("cpu"), "mst").visualize(frame)
     assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0
+
+
+# --- rat_uv, the blur-driven library effects and the degradation ladder ---
+
+
+def test_rat_uv_mixed_batch_on_card(cuda, no_plain_on_cuda, psnr_fn):
+    """A batch of two day and two night frames: the kernel path on the card
+    against the CPU path (>= 40 dB, baselines within 1 LSB), each frame
+    of the batch equal to the frame alone, both renderings launched."""
+    from animal_vision_tpu_torch.species.uv.rat_uv import RatUV
+
+    host = _frames((4, 72, 130), "cpu", seed=11).numpy()
+    host[1::2] = (host[1::2] * 0.05).astype(np.uint8)
+    assert RatUV.is_night(torch.from_numpy(host)).flatten().tolist() == [False, True, False, True]
+    animal = get_animal("rat_uv", cuda)
+    before = B.LAUNCHES["blur_uv"]
+    base_g, out_g = animal.visualize_batch(host)
+    assert B.LAUNCHES["blur_uv"] == before + 2  # the day and the night scatter blur
+    base_c, out_c = get_animal("rat_uv", "cpu").visualize_batch(host)
+    assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0
+    assert _lsb(torch.from_numpy(base_g), torch.from_numpy(base_c)) <= 1
+    for i in range(4):
+        np.testing.assert_array_equal(animal.visualize(host[i])[1], out_g[i])
+
+
+@pytest.mark.parametrize("shape", [(2, 72, 130, 3), (1, 37, 53, 1)])
+def test_unsharp_mask_and_dog_bandpass_on_card(cuda, no_plain_on_cuda, shape):
+    from animal_vision_tpu_torch.core import effects
+
+    x = torch.from_numpy(np.random.default_rng(12).random(shape, dtype=np.float32))
+    before = B.LAUNCHES["blur_uv"]
+    got = effects.unsharp_mask(x.to(cuda), 1.3, 0.7)
+    band = effects.dog_bandpass(x.to(cuda), 0.8, 2.5)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["blur_uv"] == before + 3
+    assert (got.cpu() - effects.unsharp_mask(x, 1.3, 0.7, plain=True)).abs().max().item() <= 1e-5
+    assert (band.cpu() - effects.dog_bandpass(x, 0.8, 2.5, plain=True)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["dog", "rat_uv"])
+def test_ladder_under_budget_on_card(cuda, no_plain_on_cuda, monkeypatch, name):
+    """ANIMAL_VISION_MAX_PIXELS below the frame: the rung-1024 composition
+    on the card, bit for bit, and no full-size program."""
+    from animal_vision_tpu_torch.species import base
+    from animal_vision_tpu_torch.species.uv.rat_uv import RatUV
+
+    make = {"dog": lambda: NonUVAnimal(NONUV_SPECS["dog"], cuda), "rat_uv": lambda: RatUV(cuda)}[name]
+    img = _frames((1, 720, 1280), "cpu", seed=13)[0].numpy()
+    monkeypatch.setenv("ANIMAL_VISION_MAX_PIXELS", "600000")
+    animal = make()
+    before = base.RUNGS[1024]
+    got = animal.visualize(img)
+    assert base.RUNGS[1024] == before + 1
+    assert {k[0] for k in animal._programs} == {(576, 1024, 3)}
+    small = base.host_resize(img, 576, 1024, "area")
+    want = [base.host_resize(o, 720, 1280, "linear") for o in make().visualize(small)]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])

@@ -120,12 +120,17 @@ def test_plain_transform_matches_kernel_path(name, img_u8):
 
 
 def test_registry_lists_only_ported_uv_species():
+    """Every species is ported: the registry and its groupings equal the
+    JAX package's, rat_uv included."""
+    from animal_vision_tpu.species import NON_UV_NAMES as J_NON_UV
+    from animal_vision_tpu.species import animal_names as j_animal_names
+
     assert PORTED_UV_NAMES == UV_NAMES + UNIQUE_UV_NAMES
-    assert UV_NAMES == [n for n in J_UV if n in PORTED_UV_NAMES]
-    assert UNIQUE_UV_NAMES == [n for n in J_UNIQUE if n in PORTED_UV_NAMES]
-    assert UV_NAMES == [n for n in J_UV if n != "rat_uv"] and UNIQUE_UV_NAMES == J_UNIQUE
-    assert animal_names() == sorted(NON_UV_NAMES + PORTED_UV_NAMES)
-    for n in PORTED_UV_NAMES:
+    assert UV_NAMES == J_UV and UNIQUE_UV_NAMES == J_UNIQUE and NON_UV_NAMES == J_NON_UV
+    assert "rat_uv" in UV_NAMES
+    assert animal_names() == j_animal_names() == sorted(NON_UV_NAMES + PORTED_UV_NAMES)
+    assert len(animal_names()) == 36
+    for n in animal_names():
         assert display_name(n) == j_display(n)
         assert get_animal(n, device="cpu").device == torch.device("cpu")
 

@@ -232,8 +232,9 @@ def test_classic_rgb_to_hsi_vs_jax():
     x = _rand((13, 17, 3), seed=14)
     got = tclassic.classic_rgb_to_hsi(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(jclassic.classic_rgb_to_hsi(jnp.asarray(x))), rtol=0, atol=TOL)
-    with pytest.raises(NotImplementedError):
-        tclassic.classic_rgb_to_hsi(torch.from_numpy(x), mode="mallett")
+    got = tclassic.classic_rgb_to_hsi(torch.from_numpy(x), mode="mallett").numpy()
+    want = np.asarray(jclassic.classic_rgb_to_hsi(jnp.asarray(x), mode="mallett"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
 def test_von_kries_per_frame():
