@@ -1,9 +1,10 @@
 """Sobel gradients and the structure tensor of (..., H, W, 1) maps.
 
-Counterpart of ``sobel_x``, ``sobel_y`` and ``structure_tensor`` in
-``animal_vision_tpu/core/gradients.py``: cv2.Sobel(ksize=3,
-BORDER_REFLECT_101), and Gaussian-windowed products with the UV blur. The
-map's trailing channel axis stays explicit, so x is axis -2 and y axis -3.
+Counterpart of ``animal_vision_tpu/core/gradients.py``: cv2.Sobel(ksize=3,
+BORDER_REFLECT_101), the Sobel orientation, the Gaussian-windowed
+structure tensor (products blurred with the UV blur) and its coherence and
+energy. The map's trailing channel axis stays explicit, so x is axis -2
+and y axis -3.
 The JAX package's padded-bucket sign flip of Jxy is not needed: the port
 runs every frame at its own shape.
 """
@@ -32,6 +33,14 @@ def sobel_y(img: torch.Tensor) -> torch.Tensor:
     return _blur.conv1d_axis(_blur.conv1d_axis(img, d, -3), s, -2)
 
 
+def orientation(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(gx, gy, theta = atan2(gy, gx)) of a (..., H, W, 1) map from the 3x3
+    Sobel."""
+    gx = sobel_x(img)
+    gy = sobel_y(img)
+    return gx, gy, torch.atan2(gy, gx)
+
+
 def structure_tensor(
     img: torch.Tensor, sigma: float, plain: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -44,3 +53,16 @@ def structure_tensor(
     gy = sobel_y(img)
     j = _blur.gaussian_blur_uv(torch.cat([gx * gx, gx * gy, gy * gy], dim=-1), sigma, plain)
     return j[..., 0:1], j[..., 1:2], j[..., 2:3]
+
+
+def coherence_energy(
+    img: torch.Tensor, sigma: float, eps: float = 1e-8, plain: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eigenvalue coherence ((l1 - l2) / (l1 + l2)) and energy (l1 + l2) of
+    the structure tensor of a (..., H, W, 1) map."""
+    jxx, jxy, jyy = structure_tensor(img, sigma, plain)
+    tr = jxx + jyy
+    det_disc = torch.sqrt(torch.clamp((jxx - jyy) ** 2 + 4.0 * jxy * jxy, min=0.0))
+    l1 = 0.5 * (tr + det_disc)
+    l2 = 0.5 * (tr - det_disc)
+    return (l1 - l2) / (l1 + l2 + eps), tr

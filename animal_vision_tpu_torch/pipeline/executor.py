@@ -1,0 +1,224 @@
+"""Batched, double-buffered streaming executor on pinned memory and CUDA
+streams.
+
+Counterpart of ``animal_vision_tpu/pipeline/executor.py``, with the same
+contract: ``run(frames, sink) -> n`` passes every frame through the
+species' batched program and gives ``sink`` the split frame (``split=True``)
+or the transformed frame, in order; a short last batch is handled. Every
+array passed to ``sink`` is its own: it stays valid after the sink returns.
+
+The flow of one run:
+
+- a producer thread stacks the frames of each batch straight into a slot of
+  the native SPSC ring (``native/ring.py``), the only channel: a ring that
+  does not build makes ``run`` raise;
+- the consumer copies each slot into one of two staging buffers (one
+  ``memcpy`` in C), pinned on the card. A staging buffer is refilled only
+  after the event of its last H2D copy has completed;
+- on the card, the H2D copy runs ``non_blocking`` on a stream of its own;
+  the compute stream waits on its event and runs ``animal.transform``; the
+  D2H copy of the outputs into pinned buffers runs on a third stream after
+  an event of the compute stream. Each device tensor that a stream other
+  than its allocating one reads is ``record_stream``-ed, so the caching
+  allocator gives its block to no later batch while a copy still reads it.
+  Batch i is dispatched before batch i-1 is emitted, so the card copies and
+  computes while the host fills the ring and runs the sink;
+- a baseline that is the input frame never goes through the device: it is
+  read from the staging buffer, which is refilled only after the batch is
+  emitted.
+
+On a CPU animal the same code runs without streams or pinned memory.
+``timer`` holds the last run's stages: ``ring put`` (frames into a slot),
+``ring to pinned``, ``h2d``, ``compute``, ``d2h`` (CUDA events, on the card)
+and ``sink`` (the copies out and the caller's sink); ``ring`` is the last
+run's ring (its ``library`` path and ``reads``).
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from dataclasses import dataclass
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from animal_vision_tpu_torch.io.renderer import compose_split
+from animal_vision_tpu_torch.native.ring import FrameRing
+from animal_vision_tpu_torch.species.base import torch_dtype
+from animal_vision_tpu_torch.utils.profiling import stage_timer
+
+#: the device stages, each timed between a pair of CUDA events of a batch
+DEVICE_STAGES = ("h2d", "compute", "d2h")
+
+
+@dataclass
+class _Batch:
+    """A dispatched batch: host views of its baselines (None when they are
+    not emitted) and outputs, and on the card its six timing events (start
+    and end of H2D, compute, D2H; the last one marks the outputs ready)."""
+
+    n: int
+    base: np.ndarray | None
+    out: np.ndarray
+    events: list | None
+
+
+class StreamingExecutor:
+    def __init__(
+        self,
+        animal,
+        batch: int = 8,
+        split: bool = True,
+        right_label: str = "Transformed",
+        prefetch: int = 2,
+    ):
+        self.animal = animal
+        self.batch = max(1, batch)
+        self.split = split
+        self.right_label = right_label
+        self.prefetch = prefetch
+        self.timer = stage_timer()
+        self.ring: FrameRing | None = None
+        self._streams = None
+
+    def run(self, frames: Iterable[np.ndarray], sink: Callable[[np.ndarray], None]) -> int:
+        """Pump ``frames`` (uniform (H, W, 3) arrays) through the device;
+        returns the number of frames given to ``sink``."""
+        src = iter(frames)
+        try:
+            first = np.asarray(next(src))
+        except StopIteration:
+            return 0
+        self.timer = stage_timer()
+        ring = FrameRing(first.nbytes * self.batch, n_slots=self.prefetch + 2)
+        self.ring = ring
+        errors: list[BaseException] = []
+        producer = threading.Thread(
+            target=self._produce, args=(ring, itertools.chain([first], src), first.shape, first.dtype, errors),
+            daemon=True,
+        )
+        producer.start()
+        try:
+            n = self._consume(ring, first.shape, first.dtype, sink)
+        finally:
+            ring.close()  # a producer still waiting for a slot stops
+            producer.join()
+            ring.free()
+        if errors:
+            raise errors[0]
+        return n
+
+    def _produce(self, ring: FrameRing, frames, shape, dtype, errors: list) -> None:
+        """Stack the frames of each batch into a ring slot; close the ring
+        at the end, or after the first error (kept for ``run`` to raise)."""
+        try:
+            slot, k = None, 0
+            for frame in frames:
+                frame = np.asarray(frame)
+                if frame.shape != shape or frame.dtype != dtype:
+                    raise ValueError(f"frame of {frame.shape} {frame.dtype} in a stream of {shape} {dtype}")
+                if slot is None:
+                    slot = ring.acquire((self.batch, *shape), dtype)
+                    if slot is None:  # the consumer stopped
+                        return
+                with self.timer.stage("ring put"):
+                    slot[k] = frame
+                k += 1
+                if k == self.batch:
+                    ring.commit(slot.shape)
+                    slot, k = None, 0
+            if k:
+                ring.commit((k, *shape))
+        except Exception as e:  # noqa: BLE001  (raised again by run, in the caller's thread)
+            errors.append(e)
+        finally:
+            ring.close()
+
+    def _consume(self, ring: FrameRing, shape, dtype, sink) -> int:
+        device = self.animal.device
+        on_card = device.type == "cuda"
+        if on_card and self._streams is None:
+            self._streams = tuple(torch.cuda.Stream(device) for _ in range(3))
+        program = self.animal.transform(shape, dtype)
+        full = (self.batch, *shape)
+        tdtype = torch_dtype(dtype)
+        staging = [torch.empty(full, dtype=tdtype, pin_memory=on_card) for _ in range(2)]
+        outs = [torch.empty(full, dtype=tdtype, pin_memory=on_card) for _ in range(2)] if on_card else None
+        bases = [None, None]
+        h2d_done = [None, None]
+        n, pending = 0, None
+        for i in itertools.count():
+            if not ring.wait_readable():
+                break
+            s = i % 2
+            if h2d_done[s] is not None:
+                h2d_done[s].synchronize()
+            buf = staging[s]
+            with self.timer.stage("ring to pinned"):
+                got, _ = ring.read_into(buf.data_ptr(), buf.numel() * buf.element_size())
+            host = buf[: got[0]]
+            if on_card:
+                batch = self._dispatch_card(program, host, outs[s], bases, s)
+                h2d_done[s] = batch.events[1]
+            else:
+                with self.timer.stage("compute"):
+                    base, out = program(host)
+                emit_base = None if not self.split else (host if base is host else base).numpy()
+                batch = _Batch(host.shape[0], emit_base, out.numpy(), None)
+            if pending is not None:
+                n += self._emit(pending, sink)
+            pending = batch
+        if pending is not None:
+            n += self._emit(pending, sink)
+        return n
+
+    def _dispatch_card(self, program, host: torch.Tensor, out_buf: torch.Tensor, bases: list, s: int) -> _Batch:
+        """Queue H2D, compute and D2H of one batch on the three streams."""
+        h2d, compute, d2h = self._streams
+        device = self.animal.device
+        k = host.shape[0]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        with torch.cuda.stream(h2d):
+            ev[0].record(h2d)
+            x = torch.empty(host.shape, dtype=host.dtype, device=device)
+            x.copy_(host, non_blocking=True)
+            ev[1].record(h2d)
+        compute.wait_event(ev[1])
+        with torch.cuda.stream(compute):
+            x.record_stream(compute)
+            ev[2].record(compute)
+            base, out = program(x)
+            ev[3].record(compute)
+        d2h.wait_event(ev[3])
+        with torch.cuda.stream(d2h):
+            ev[4].record(d2h)
+            out.record_stream(d2h)
+            out_host = out_buf[:k]
+            out_host.copy_(out, non_blocking=True)
+            emit_base = None
+            if self.split and base is x:
+                emit_base = host
+            elif self.split:
+                if bases[s] is None:
+                    bases[s] = torch.empty(out_buf.shape, dtype=base.dtype, pin_memory=True)
+                base.record_stream(d2h)
+                emit_base = bases[s][:k]
+                emit_base.copy_(base, non_blocking=True)
+            ev[5].record(d2h)
+        return _Batch(k, None if emit_base is None else emit_base.numpy(), out_host.numpy(), ev)
+
+    def _emit(self, batch: _Batch, sink) -> int:
+        if batch.events is not None:
+            ev = batch.events
+            ev[5].synchronize()
+            for j, name in enumerate(DEVICE_STAGES):
+                self.timer.add(name, ev[2 * j].elapsed_time(ev[2 * j + 1]) / 1e3)
+        with self.timer.stage("sink"):
+            for i in range(batch.n):
+                if self.split:
+                    sink(compose_split(batch.base[i], batch.out[i], right_label=self.right_label))
+                else:
+                    sink(batch.out[i].copy())
+        return batch.n

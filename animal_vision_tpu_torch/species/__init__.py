@@ -43,15 +43,12 @@ def register(name: str, display: str, factory: Callable[[torch.device], Animal])
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """``None`` means the CUDA card; without one that is an error, never a
-    silent move to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` means the CUDA card; a CUDA device without a card is an
+    error, never a silent move to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def get_animal(name: str, device: str | torch.device | None = None) -> Animal:

@@ -45,6 +45,27 @@ def _integrate_maps(lin: torch.Tensor, g: torch.Tensor, wmat: torch.Tensor) -> t
     return linalg.frame_matmul(torch.clamp(linalg.frame_matmul(lin, g), min=0.0), wmat)
 
 
+def compute_band_maps(
+    frame: torch.Tensor, lambdas: np.ndarray, weight_columns: np.ndarray, hsi_scale: float
+) -> torch.Tensor:
+    """(..., H, W, n) raw band integrals of the analytic spectrum of
+    (..., H, W, 3) ``frame`` (linearized here, as the reference's converter
+    does with whatever it is given). ``weight_columns`` is (B, n);
+    0 < ``hsi_scale`` < 1 takes the area-down, linear-up speed path."""
+    g = device_table(classic.lobe_matrix(tuple(float(v) for v in np.asarray(lambdas))), frame.device)
+    wmat = device_table(np.asarray(weight_columns, dtype=np.float32), frame.device)
+
+    def maps_of(x):
+        return _integrate_maps(color.srgb_to_linear(x), g, wmat)
+
+    frame = frame.to(torch.float32)
+    h, w = int(frame.shape[-3]), int(frame.shape[-2])
+    if 0.0 < hsi_scale < 1.0:
+        small = (max(1, int(round(h * hsi_scale))), max(1, int(round(w * hsi_scale))))
+        return geometry.resize(maps_of(geometry.resize(frame, small, "area")), (h, w), "linear")
+    return maps_of(frame)
+
+
 def band_weight_columns(lambdas: np.ndarray, band_specs) -> np.ndarray:
     """(B, n) stack of raised-cosine band weights for (lo, hi) pairs."""
     lam = tuple(float(v) for v in np.asarray(lambdas))

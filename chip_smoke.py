@@ -67,6 +67,14 @@ raises on failure:
    counters around the run (27 ``ffn`` launches per MST-L forward), each
    against its plain version on the card (forward within 5e-4 of max |y|,
    species >= 40 dB, baselines <= 1 LSB), ms and fps;
+   then host frames through the streaming executor (``stream_phase``):
+   for the dog, deer, rat, cat and kestrel, 50 uint8 1080p frames through
+   ``StreamingExecutor(batch=4, split=False)``, each equal to
+   ``visualize_batch`` of its batch, through the native ring, the species'
+   kernel launched for every batch, and in a profiled run every frame copy
+   pinned and on a stream apart from the kernels'; streamed fps beside
+   ``visualize`` and batch-on-card fps, the executor's stage split, page
+   faults, the card's busy share, H2D and D2H GB/s;
    then the library: the functions no species calls (band integrals,
    ``map_uv_purple_yellow``, the general Gaussian blurs, ``tapetum_bloom``,
    ``rod_vision``, ``unsharp_mask``, ``dog_bandpass``, ``remap_bilinear``,
@@ -105,6 +113,7 @@ import itertools
 import json
 import os
 import re
+import resource
 import subprocess
 import sys
 import time
@@ -112,6 +121,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from animal_vision_tpu_torch.utils.timing import time_ms
 
 SEED = 20261016
 SHAPES = ((1080, 1920), (721, 1283))
@@ -128,10 +139,6 @@ TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 TC_KERNELS = ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel", "up_fuse_kernel", "ffn_kernel")
 TC_INSTANCES = ("conv_kernel", "attn_stats_kernel", "msab_pos_kernel", "up_fuse_kernel", "ffn_kernel")
 KERNEL_REPS = 100
-# time_ms: the card's wait before a timed run, at most; cycles per second of
-# that wait (at least the SM clock, so the wait lasts at least as long)
-QUEUE_AHEAD_S = 0.2
-SLEEP_CYCLES_PER_S = 2.0e9
 PLAIN_REPS = 5
 MAIN_REPS = 100
 BLUR_KSIZES = (3, 7, 9, 13, 19, 37)
@@ -209,6 +216,12 @@ OOM_FREE_BYTES = 1 << 30
 # against the port on the CPU
 LIBRARY_HW = (540, 960)
 LIBRARY_TOL = 1e-5
+# the streaming phase: species (one per non-UV kernel, the cat, a UV
+# species), frames per run (the last batch holds 2), timed runs
+STREAM_SPECIES = ("dog", "deer", "rat", "cat", "kestrel")
+STREAM_FRAMES = 50
+STREAM_BATCH = 4
+STREAM_RUNS = 3
 REPORT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_report.json"
 
 
@@ -222,32 +235,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int, device: torch.device, warmup: int = 2) -> float:
-    """Mean milliseconds per call of ``fn`` over ``reps`` calls after
-    ``warmup``; CUDA events on the card, with the calls queued ahead: the
-    card first waits (``torch.cuda._sleep``) for 1.5 times as long as the
-    host took to issue ``reps`` warm-up calls (at most QUEUE_AHEAD_S), so
-    that a wrapper's host time per call does not show as the kernel's."""
-    t0 = time.perf_counter()
-    for _ in range(warmup):
-        fn()
-    host_s = (time.perf_counter() - t0) / warmup
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(min(QUEUE_AHEAD_S, 1.5 * host_s * reps) * SLEEP_CYCLES_PER_S))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def sync(device: torch.device) -> None:
@@ -1521,6 +1508,162 @@ def library_phase(device: torch.device, hw=LIBRARY_HW, batch=BATCH // 2, tol=LIB
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 4b: host frames through the streaming executor
+# ---------------------------------------------------------------------------
+
+
+def trace_device_events(prof) -> list[dict]:
+    """The device-side events of a ``torch.profiler`` run (kernels, memcpys,
+    memsets) from its Chrome trace: name, category, stream, start and
+    duration in µs, bytes."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    out = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            args = e.get("args", {})
+            out.append(dict(name=e["name"], cat=e["cat"], stream=args.get("stream"), ts=float(e["ts"]),
+                            dur=float(e["dur"]), bytes=int(args.get("bytes", 0))))
+    return out
+
+
+def busy_us(events: list[dict]) -> float:
+    """Length of the union of the events' intervals (µs): the time the card
+    was doing anything, however many streams ran at once."""
+    total, end = 0.0, None
+    for e in sorted(events, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        if end is None or lo > end:
+            total += hi - lo
+            end = hi
+        elif hi > end:
+            total += hi - end
+            end = hi
+    return total
+
+
+def stream_phase(device: torch.device, reference: dict, names=STREAM_SPECIES, n_frames=STREAM_FRAMES,
+                 batch=STREAM_BATCH, runs=STREAM_RUNS, hw=MAIN_HW) -> dict:
+    """Host frames through ``StreamingExecutor(batch, split=False)``: for
+    each species, ``n_frames`` uint8 frames made before the clock (so that
+    the last batch is short). Hard checks: every frame comes out, in order,
+    bit-equal to ``visualize_batch`` of its batch on the card; the frames
+    went through the native ring built in ``build/native/``; each batch
+    launched the species' kernel (counters set to 0 before the run, read
+    after); in one ``torch.profiler`` run every memcpy of frame data (host
+    to card or back, at least one frame's bytes) is pinned, runs on a
+    stream apart from the compute kernels' and the copies add up to every
+    frame once each way. Measured: streamed fps (median, p90 of ``runs``
+    runs, host clock around ``run``), the executor's stage split per frame
+    and the process's minor page faults per frame (median run), the card's
+    busy share in the profiled run, H2D and D2H GB/s. ``reference``
+    holds each species' ``visualize`` and batch-on-card fps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from animal_vision_tpu_torch.native import ring as R
+    from animal_vision_tpu_torch.pipeline import StreamingExecutor
+    from animal_vision_tpu_torch.species import NON_UV_NAMES, get_animal
+
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(SEED + 8)
+    frames = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(n_frames)]
+    frame_bytes = frames[0].nbytes
+    n_batches = -(-n_frames // batch)
+    build_dir = R.BUILD_DIR
+    rows = {}
+
+    def drop(_frame):
+        pass
+
+    with plain_forbidden_on_cuda():
+        for name in names:
+            animal = get_animal(name, device)
+            ex = StreamingExecutor(animal, batch=batch, split=False)
+            outs = []
+            reset_counters()
+            n = ex.run(iter(frames), outs.append)
+            moved = {k: v for k, v in counters().items() if v}
+            if n != n_frames or len(outs) != n_frames:
+                raise AssertionError(f"{name}: {n} frames streamed, {len(outs)} reached the sink, of {n_frames}")
+            kernel = expected_kernel(name) if name in NON_UV_NAMES else "blur_uv"
+            want_launches = n_batches if kernel != "blur_uv" else moved.get(kernel, 0)
+            if on_card and (set(moved) != {kernel} or moved[kernel] < n_batches or moved[kernel] != want_launches):
+                raise AssertionError(f"{name}: launches over the streamed run {moved}, expected {kernel} for each "
+                                     f"of {n_batches} batches")
+            for start in range(0, n_frames, batch):
+                _, want = animal.visualize_batch(np.stack(frames[start:start + batch]))
+                for i, w in enumerate(want):
+                    if not np.array_equal(outs[start + i], w):
+                        raise AssertionError(f"{name}: streamed frame {start + i} differs from visualize_batch "
+                                             f"({max_lsb(torch.from_numpy(outs[start + i]), torch.from_numpy(w))} "
+                                             f"LSB)")
+            if Path(ex.ring.library).parent != build_dir or ex.ring.reads != n_batches:
+                raise AssertionError(f"{name}: ring {ex.ring.library} with {ex.ring.reads} reads, expected "
+                                     f"{n_batches} through a library in {build_dir}")
+            del outs
+            fps, splits, faults = [], [], []
+            for _ in range(runs):
+                minflt = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+                t0 = time.perf_counter()
+                n = ex.run(iter(frames), drop)
+                fps.append(n / (time.perf_counter() - t0))
+                faults.append((resource.getrusage(resource.RUSAGE_SELF).ru_minflt - minflt) / n_frames)
+                splits.append({k: v * 1e3 / n_frames for k, v in ex.timer.totals.items()})
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                ex.run(iter(frames), drop)
+                wall_us = (time.perf_counter() - t0) * 1e6
+            events = trace_device_events(prof)
+            kernels = [e for e in events if e["cat"] == "kernel"]
+            copies = [e for e in events if e["cat"] == "gpu_memcpy"]
+            # frame data crosses between host and card; a device-to-device
+            # copy is the program's own work on the compute stream
+            frame_copies = [e for e in copies if e["bytes"] >= frame_bytes and ("HtoD" in e["name"]
+                                                                                 or "DtoH" in e["name"])]
+            kernel_streams = {e["stream"] for e in kernels}
+            copy_streams = {e["stream"] for e in frame_copies}
+            kinds = sorted({e["name"] for e in copies})
+            h2d = [e for e in frame_copies if "HtoD" in e["name"]]
+            d2h = [e for e in frame_copies if "DtoH" in e["name"]]
+            frame_total = n_frames * frame_bytes
+            if on_card and (any("Pinned" not in e["name"] for e in frame_copies) or copy_streams & kernel_streams
+                            or sum(e["bytes"] for e in h2d) != frame_total
+                            or sum(e["bytes"] for e in d2h) != frame_total):
+                raise AssertionError(f"{name}: frame copies {kinds} on streams {sorted(copy_streams)}, kernels on "
+                                     f"{sorted(kernel_streams)}, {sum(e['bytes'] for e in h2d)} bytes H2D")
+            med = int(np.argsort(fps)[len(fps) // 2])
+            split = splits[med]
+            h2d_gbs = frame_bytes / (split["h2d"] * 1e-3) / 1e9 if on_card else None
+            d2h_gbs = frame_bytes / (split["d2h"] * 1e-3) / 1e9 if on_card else None
+            busy = busy_us(events)
+            rows[name] = dict(
+                frames=n_frames, batch=batch, fps_runs=fps, fps_median=float(np.median(fps)),
+                fps_p90=float(np.percentile(fps, 90)), visualize_fps=reference[name]["visualize_fps"],
+                batch_fps=reference[name]["batch_fps"], split_ms_per_frame=split, launches=moved,
+                ring=dict(library=ex.ring.library, reads=ex.ring.reads), h2d_gb_s=h2d_gbs, d2h_gb_s=d2h_gbs,
+                profiled_wall_us=wall_us, device_busy_us=busy, device_busy_share=busy / wall_us,
+                compute_busy_us=busy_us(kernels), memcpy_kinds=kinds, copy_streams=sorted(copy_streams),
+                kernel_streams=sorted(kernel_streams), other_memcpys=len(copies) - len(frame_copies),
+                page_faults_per_frame=faults[med],
+            )
+            log(f"[stream] {name:<8} {n_frames} frames of {hw[0]}x{hw[1]}, batch {batch}: streamed "
+                f"{rows[name]['fps_median']:.1f} fps (p90 {rows[name]['fps_p90']:.1f}; runs "
+                f"{', '.join(f'{f:.1f}' for f in fps)}); visualize {reference[name]['visualize_fps']:.1f} fps, "
+                f"batch on card {reference[name]['batch_fps']:.1f} fps; bit-equal to visualize_batch; "
+                f"launches {moved}")
+            log(f"[stream] {name:<8} ms per frame: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f"; {faults[med]:.0f} page faults per frame; H2D {h2d_gbs} GB/s, D2H {d2h_gbs} GB/s; device busy {busy / wall_us:.1%} of "
+                f"{wall_us / 1e3:.1f} ms (kernels {busy_us(kernels) / wall_us:.1%}); copies {kinds}, frame copies on "
+                f"streams {sorted(copy_streams)}, kernels on {sorted(kernel_streams)}; ring {ex.ring.library}")
+    return dict(species=rows, frames=n_frames, batch=batch, hw=list(hw))
+
+
 def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], ffn_rows: list[dict],
             launches: dict, ablation: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
@@ -1621,6 +1764,8 @@ def main() -> int:
     no_rungs("main mst++")
     mst_l_run = mst_l_main_path_phase(device)
     no_rungs("main mst-l")
+    stream_run = stream_phase(device, {**main_run["species"], **uv_run["species"]})
+    no_rungs("stream")
     library_run = library_phase(device)
     no_rungs("library")
     profile_run = profile_phase(device)
@@ -1644,7 +1789,8 @@ def main() -> int:
                                       blur_cases=blur_rows,
                                       mst_cases=mst_rows, ffn_cases=ffn_rows, main_path=main_run,
                                       uv_main_path=uv_run, mst_main_path=mst_run, mst_l_main_path=mst_l_run,
-                                      library=library_run, profile=profile_run, degrade=degrade_run,
+                                      stream=stream_run, library=library_run, profile=profile_run,
+                                      degrade=degrade_run,
                                       kernels=kernels["kernels"], seconds=time.perf_counter() - t0), indent=1))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(info["card"])

@@ -1,5 +1,6 @@
-"""Import rules of the PyTorch port: no JAX, no JAX package, no OpenCV, and
-no work at import time."""
+"""Import rules of the PyTorch port: no JAX, no JAX package, no OpenCV (the
+I/O modules import cv2 inside the functions that use it), and no work at
+import time: no kernel library and no frame ring is built or loaded."""
 
 import json
 import os
@@ -24,8 +25,9 @@ bad = sorted(
     if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
     or m == "animal_vision_tpu" or m.startswith("animal_vision_tpu.") or m == "cv2"
 )
+from animal_vision_tpu_torch.native import ring
 from animal_vision_tpu_torch.ops import _build
-print(json.dumps({"modules": names, "bad": bad, "libs": sorted(_build._libs)}))
+print(json.dumps({"modules": names, "bad": bad, "libs": sorted(_build._libs), "ring": ring._lib is not None}))
 """
 
 
@@ -37,6 +39,7 @@ def test_port_imports_no_jax_package_or_cv2():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     assert report["libs"] == []  # importing builds and loads no kernel library
+    assert report["ring"] is False  # nor the frame ring
     expected = {
         "animal_vision_tpu_torch.core.blur", "animal_vision_tpu_torch.core.color",
         "animal_vision_tpu_torch.core.effects", "animal_vision_tpu_torch.core.geometry",
@@ -55,7 +58,9 @@ def test_port_imports_no_jax_package_or_cv2():
         "animal_vision_tpu_torch.models.zoo", "animal_vision_tpu_torch.spectral.colorimetry",
     } | {f"animal_vision_tpu_torch.species.uv.{n}" for n in (
         "mantis_shrimp", "jumping_spider", "dragonfly", "hummingbird", "damselfish", "anableps", "anchovy",
-        "guppy", "morpho", "heliconius", "pieris", "rat_uv")}
+        "guppy", "morpho", "heliconius", "pieris", "rat_uv")} | {f"animal_vision_tpu_torch.{n}" for n in (
+        "utils.timing", "utils.profiling", "native.ring", "io.renderer", "io.image", "io.video", "io.webcam",
+        "io.gallery", "pipeline.executor", "service", "cli")}
     assert expected <= set(report["modules"])
 
 

@@ -798,3 +798,41 @@ def test_ladder_under_budget_on_card(cuda, no_plain_on_cuda, monkeypatch, name):
     want = [base.host_resize(o, 720, 1280, "linear") for o in make().visualize(small)]
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", ["dog", "kestrel"])
+def test_streaming_executor_on_card(cuda, no_plain_on_cuda, monkeypatch, name):
+    """The executor at 1080p on 7 host frames, batch 3 (a short last batch
+    of 1), with a sink that keeps every frame: each frame bit-equal to
+    ``visualize_batch`` of its batch after the run, no two sharing memory;
+    the staging and output buffers pinned, two staging buffers in turn; the
+    frames through the native ring; the copies and compute timed."""
+    from pathlib import Path
+
+    from animal_vision_tpu_torch.native import ring as R
+    from animal_vision_tpu_torch.pipeline import StreamingExecutor
+
+    seen = []
+    dispatch = StreamingExecutor._dispatch_card
+
+    def spy(self, program, host, out_buf, bases, s):
+        seen.append((host.is_pinned(), out_buf.is_pinned(), host.data_ptr(), host.shape[0]))
+        return dispatch(self, program, host, out_buf, bases, s)
+
+    monkeypatch.setattr(StreamingExecutor, "_dispatch_card", spy)
+    rng = np.random.default_rng(11)
+    frames = [rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8) for _ in range(7)]
+    animal = get_animal(name, cuda)
+    ex = StreamingExecutor(animal, batch=3, split=False)
+    outs = []
+    assert ex.run(iter(frames), outs.append) == 7 and len(outs) == 7
+    assert [k for *_, k in seen] == [3, 3, 1]
+    assert all(pinned_in and pinned_out for pinned_in, pinned_out, _, _ in seen)
+    assert seen[0][2] != seen[1][2] and seen[0][2] == seen[2][2]
+    for start in (0, 3, 6):
+        _, want = animal.visualize_batch(np.stack(frames[start:start + 3]))
+        for i, w in enumerate(want):
+            np.testing.assert_array_equal(outs[start + i], w)
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(outs) for b in outs[i + 1:])
+    assert Path(ex.ring.library).parent == R.BUILD_DIR and ex.ring.reads == 3
+    assert all(ex.timer.counts[k] == 3 for k in ("h2d", "compute", "d2h"))
