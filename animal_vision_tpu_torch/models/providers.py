@@ -6,8 +6,8 @@ config #4, "MST++ RGB->31-band hyperspectral inference + kestrel/mantis-
 shrimp UV rendering"). A provider is a callable ``(frames, plain=False) ->
 cube`` from (..., h, w, 3) frames to the (..., h, w, 31) cube on the
 ``MST_LAMBDAS`` grid; ``plain`` runs the model's plain versions (what a
-species' ``plain_transform`` uses). Any ported zoo method serves
-(``models/zoo.py``: MST++ and MST-L).
+species' ``plain_transform`` uses). Any of the zoo's eleven methods
+serves (``models/zoo.py``).
 """
 
 from __future__ import annotations
@@ -36,8 +36,16 @@ def make_mst_hsi_provider(module: torch.nn.Module | None = None, pretrained_path
     on ARAD see gamma-encoded RGB, so with a ``pretrained_path`` the default
     re-encodes linear -> sRGB (``"srgb"``) and otherwise keeps the input
     (``"linear"``). The cube is clamped at >= 0 (physical reflectance).
-    MST++ takes the frames as one batch; MST-L takes one frame per forward,
-    because its mask attention comes from a batch's first frame."""
+    MST-L takes one frame per forward, because its mask attention comes
+    from a batch's first frame. Every other method takes the frames as one
+    batch: each frame's output depends on that frame alone (per-frame
+    attention, instance statistics, BatchNorm from running statistics), so
+    a batch equals its frames. A batch is not always faster per frame:
+    cuDNN picks each convolution's algorithm by the shape, and for SGN's
+    batch of four 272x480 frames it took an FFT path six times slower per
+    frame, so SGN runs its batch frame by frame (``models/sgn.py``).
+    ``plain`` runs the plain versions of the port's kernels in MST++ and
+    MST-L; the other methods are plain PyTorch throughout."""
     if input_encoding is None:
         input_encoding = "srgb" if pretrained_path is not None else "linear"
     if input_encoding not in ("linear", "srgb"):
@@ -71,8 +79,9 @@ def attach_mst(animal, module: MSTPlusPlus | None = None, pretrained_path=None):
 
 
 def attach_model(animal, method: str, pretrained_path=None):
-    """Attach the zoo's ``method`` (``"mst_plus_plus"`` or ``"mst"``) on the
-    animal's device as its HSI provider, with its 31-band grid: the weights
-    of ``pretrained_path``, or seeded ones without it."""
+    """Attach the zoo's ``method`` (any of ``zoo.available_models()``) on
+    the animal's device as its HSI provider, with its 31-band grid: the
+    weights of ``pretrained_path``, or seeded ones without it (the
+    repository ships trained weights for MST++ alone)."""
     provider = make_mst_hsi_provider(pretrained_path=pretrained_path, device=animal.device, method=method)
     return animal.use_hsi_provider(provider, lambdas=MST_LAMBDAS)

@@ -1,9 +1,13 @@
 """Model registry: method name -> the port's ``nn.Module``.
 
-Counterpart of ``animal_vision_tpu/models/zoo.py`` for the methods ported
-so far: ``"mst_plus_plus"`` (MST++, ``models/mst_plus_plus.py``) and
-``"mst"`` (MST-L, ``models/mst.py``). The JAX registry's nine other methods
-raise a ``ValueError`` that names them as not yet ported.
+Counterpart of ``animal_vision_tpu/models/zoo.py``, all eleven methods with
+the JAX constructors' arguments (``animal_vision_tpu/models/zoo.py:137-161``):
+``"mst_plus_plus"`` (MST++, ``models/mst_plus_plus.py``), ``"mst"`` (MST-L,
+``models/mst.py``), ``"hscnn_plus"`` and ``"edsr"``
+(``models/simple_nets.py``), ``"hinet"``, ``"mprnet"``, ``"restormer"``,
+``"mirnet"``, ``"hdnet"``, ``"hrnet"`` (SGN, ``models/sgn.py``) and
+``"awan"``. The nine methods beside MST++ and MST-L are plain PyTorch: the
+JAX package runs them in XLA outside any Pallas kernel.
 
 ``model_generator`` loads a checkpoint in the reference layout when given
 one, and otherwise draws the weights from an explicit
@@ -19,16 +23,36 @@ from typing import Any
 import torch
 from torch import nn
 
+from animal_vision_tpu_torch.models.awan import AWAN
+from animal_vision_tpu_torch.models.common import ZooNet
+from animal_vision_tpu_torch.models.hdnet import HDNet
+from animal_vision_tpu_torch.models.hinet import HINet
+from animal_vision_tpu_torch.models.mirnet import MIRNet
+from animal_vision_tpu_torch.models.mprnet import MPRNet
 from animal_vision_tpu_torch.models.mst import MSTModel
 from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus, UpConv
+from animal_vision_tpu_torch.models.restormer import Restormer
+from animal_vision_tpu_torch.models.sgn import SGN
+from animal_vision_tpu_torch.models.simple_nets import EDSR, HSCNNPlus
 
 _REGISTRY = {
     "mst_plus_plus": MSTPlusPlus,
+    # 'hinet' config parity: HINet(depth=4)
+    "hinet": lambda: HINet(depth=4),
+    "awan": lambda: AWAN(n_drbs=8),
+    "restormer": Restormer,
+    # 'mprnet' config parity: MPRNet(num_cab=4)
+    "mprnet": lambda: MPRNet(num_cab=4),
+    "hdnet": HDNet,
+    # 'mirnet' config parity: MIRNet(n_RRG=3, n_MSRB=1, height=3, width=1)
+    "mirnet": lambda: MIRNet(n_rrg=3, n_msrb=1, height=3, width=1),
+    # 'hrnet' config parity: SGN()
+    "hrnet": SGN,
     # 'mst' config parity: MST(dim=31, stage=2, num_blocks=[4,7,5])
     "mst": MSTModel,
+    "hscnn_plus": HSCNNPlus,
+    "edsr": EDSR,
 }
-#: The JAX registry's methods that the port does not have yet.
-NOT_PORTED = ("awan", "edsr", "hdnet", "hinet", "hrnet", "hscnn_plus", "mirnet", "mprnet", "restormer")
 
 
 def available_models() -> list[str]:
@@ -50,21 +74,40 @@ def find_state_dict(obj: Any) -> dict:
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from ``generator`` (on the CPU), in the spirit
     of the JAX package's initialisers: each kernel normal with standard
-    deviation 1/sqrt(fan in), biases 0, LayerNorm scales and attention
-    rescales 1."""
+    deviation 1/sqrt(fan in) (MST++ and MST-L) or 1/sqrt(3 fan in), the
+    gain of PyTorch's own default for convolutions (the nine networks of
+    ``models/common.py:ZooNet``, whose residual stacks of up to 63 blocks
+    would grow their outputs a thousandfold at unit gain), biases 0; norm
+    scales (LayerNorm, InstanceNorm, BatchNorm), attention rescales and
+    temperatures 1; PReLU slopes 0.25 (a shared PReLU once). BatchNorm
+    running means are drawn normal with standard deviation 0.1 and running
+    variances uniform on [0.5, 1.5), so that the inference normalisation is
+    not the identity."""
+    gain = 1.0 / math.sqrt(3.0) if isinstance(model, ZooNet) else 1.0
     with torch.no_grad():
         for name, p in model.named_parameters():
             owner_name, _, leaf = name.rpartition(".")
             owner = model.get_submodule(owner_name)
-            if leaf == "rescale" or (isinstance(owner, nn.LayerNorm) and leaf == "weight"):
+            if isinstance(owner, nn.PReLU):
+                p.fill_(0.25)
+            elif leaf in ("rescale", "temperature") or (leaf == "weight" and p.dim() == 1):
                 p.fill_(1.0)
             elif leaf == "bias":
                 p.zero_()
             else:
-                # an up-convolution's (in, out, 2, 2) weight: each output
-                # sums over the input channels at one tap
-                fan_in = p.shape[0] if isinstance(owner, UpConv) else p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+                # a transposed convolution's (in, out, k, k) weight: each
+                # output sums over the input channels at k^2 / stride^2 taps
+                if isinstance(owner, UpConv):
+                    fan_in = p.shape[0]
+                elif isinstance(owner, nn.ConvTranspose2d):
+                    fan_in = p.shape[0] * p[0, 0].numel() / (owner.stride[0] * owner.stride[1])
+                else:
+                    fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=generator) * (gain / math.sqrt(fan_in)))
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=generator))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=generator))
     return model
 
 
@@ -74,8 +117,6 @@ def model_generator(method: str, pretrained_model_path=None, device: str | torch
     None; without a card that raises), with the weights of the reference
     checkpoint ``pretrained_model_path`` or, without one, weights drawn from
     ``torch.Generator().manual_seed(seed)``."""
-    if method in NOT_PORTED:
-        raise ValueError(f"method {method!r} is not yet ported to PyTorch; ported: {available_models()}")
     if method not in _REGISTRY:
         raise ValueError(f"unknown method {method!r}; available: {available_models()}")
     device = torch.device("cuda" if device is None else device)

@@ -42,7 +42,18 @@ raises on failure:
    kernels taken apart (``csrc/nonuv_probe.cu``, the port of
    ``tools/exp_micro.py:28``) on 4 uint8 1080p frames: a copy, the sRGB
    curves by powf and by tables, a 3x3 mix, 12 and 28 W-taps, ms per
-   frame; the table variants must give the powf variants' bytes;
+   frame; the table variants must give the powf variants' bytes; then the
+   GELU probe (``csrc/gelu_probe.cu``, the port of
+   ``tools/exp_vpu_bf16.py:55``): the degree-11 and degree-7 GELU
+   polynomials, a 3x3 multiply-add stencil, one multiply-add and the erf
+   GELU, each applied 32-256 times over a 4096x512 array in f32 and bf16,
+   each kernel against its plain version after 1, 8 and all its
+   applications on that array and on 2^20 points in [-8, 8] (f32 within
+   1e-5 of min(1, max |y|), the stencil of max |y|; bf16 within 2^-6 of
+   each |y|), ms, ns per element application, ratio to the multiply-add,
+   bound (bf16 at its own rate, 133.8 TFLOP/s), the multiply-add's steady
+   rate over 4096 applications, each instance's SASS opcodes, and
+   max |degree-11 - erf| over the 2^20 points;
 4. main path: ``get_animal(name).visualize(frame)`` and
    ``visualize_batch_device`` (4 frames already on the card) at 1080p, first
    for the 20 non-UV species, then for the 16 UV species (rat_uv on the
@@ -67,14 +78,23 @@ raises on failure:
    counters around the run (27 ``ffn`` launches per MST-L forward), each
    against its plain version on the card (forward within 5e-4 of max |y|,
    species >= 40 dB, baselines <= 1 LSB), ms and fps;
+   then the zoo's nine other methods (``zoo_phase``, seeded weights): each
+   on the card against the CPU at 64x96 and 37x53 (within 1e-4 of max |y|),
+   one 1080p forward (AWAN through ``predict_tiled``) with its FLOPs,
+   share of 67 TFLOP/s, peak memory, busy share and top kernels, and
+   kestrel with ``attach_model`` through both entry points (``blur_uv``
+   launches counted, >= 40 dB against the CPU path, baseline <= 1 LSB,
+   fps, peak memory), then one ``forward_ensemble("mean")`` at 272x480
+   against the mean of its eight forwards;
    then host frames through the streaming executor (``stream_phase``):
    for the dog, deer, rat, cat and kestrel, 50 uint8 1080p frames through
    ``StreamingExecutor(batch=4, split=False)``, each equal to
    ``visualize_batch`` of its batch, through the native ring, the species'
-   kernel launched for every batch, and in a profiled run every frame copy
-   pinned and on a stream apart from the kernels'; streamed fps beside
-   ``visualize`` and batch-on-card fps, the executor's stage split, page
-   faults, the card's busy share, H2D and D2H GB/s;
+   kernel launched for every batch, and in a profiled run the frames
+   equal again and every frame copy pinned and on a stream apart from the
+   kernels', the trace's memcpy records matched to the runtime's calls;
+   streamed fps beside ``visualize`` and batch-on-card fps, the executor's
+   stage split, page faults, the card's busy share, H2D and D2H GB/s;
    then the library: the functions no species calls (band integrals,
    ``map_uv_purple_yellow``, the general Gaussian blurs, ``tapetum_bloom``,
    ``rod_vision``, ``unsharp_mask``, ``dog_bandpass``, ``remap_bilinear``,
@@ -99,7 +119,9 @@ raises on failure:
 7. summary: one JSON line with each kernel (``pointwise_u8`` with its
    share of the bytes bound and its ratio to the ablation's copy of the
    same number of frames; ``blur_uv`` with rat_uv's cases, C = 3 and
-   k = 7 and 9 at 1080p), then, as the last line,
+   k = 7 and 9 at 1080p; the GELU probe's ten cases, each with its
+   launches from the probe's own run, as the probe runs on no species'
+   path), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device. A detailed
@@ -132,6 +154,7 @@ SMALL_HW = (64, 96)
 TOL_LSB = 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 133.8e12  # H100 SXM, bf16 outside the tensor cores (NVIDIA H100 whitepaper)
 TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 # kernels whose products run in 3xTF32 on the tensor cores: the summary names
 # (msab_apply_kernel: msab_pos_kernel, then ffn_kernel) and the built
@@ -183,6 +206,30 @@ PROBE_VARIANTS = (("copy", 0, 0, 0), ("curves by powf", 1, 0, 0), ("curves by ta
                   ("tables + mix + 28 W-taps", 2, 1, 28), ("powf + 3x3 mix", 1, 1, 0),
                   ("powf + mix + 28 W-taps", 1, 1, 28))
 PROBE_REPS = 50
+# the GELU probe (csrc/gelu_probe.cu): applications after which each kernel
+# is held against its plain version (``gelu_probe.excess``: float32 within
+# 1e-5 of min(1, max |y|), the stencil of max |y|; bf16 within 2^-6 of each
+# |y|), before the full count is timed; timed calls per case; the points of
+# the deg-11 vs erf readout; operations per element and application (a
+# multiply-add 2; erff counted as 1, so gelu_erf's bound is a lower bound);
+# single_madd's applications for the steady rate of the float units
+GELU_PROBE_CHECK_REPS = (1, 8)
+GELU_PROBE_REPS = 20
+GELU_ERF_POINTS = 1 << 20
+GELU_PROBE_OPS = {"gelu_deg11": 31, "gelu_deg7": 19, "madd3x3": 17, "single_madd": 2, "gelu_erf": 5}
+GELU_RATE_REPS = 4096
+# the zoo's nine other methods: the card against the CPU at two small sizes
+# (within 1e-4 of max |y|), one 1080p forward (AWAN through predict_tiled,
+# tiles of 256 with overlap 64, 8 tiles per call), kestrel as the provider,
+# and one self-ensemble at 272x480
+ZOO_METHODS = ("hscnn_plus", "edsr", "hinet", "mprnet", "restormer", "mirnet", "hdnet", "hrnet", "awan")
+ZOO_SMALL = ((64, 96), (37, 53))
+ZOO_REL_TOL = 1e-4
+ZOO_FORWARD_REPS = 5
+ZOO_SPECIES_REPS = 3
+ZOO_TILE = (256, 64, 8)  # (tile, overlap, tiles per call) of AWAN's 1080p point
+ZOO_ENSEMBLE = ("mirnet", (272, 480))
+ZOO_ENSEMBLE_REL_TOL = 1e-5
 SOURCES = {
     "iso_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
     "streak_u8": "animal_vision_tpu_torch/csrc/fused_nonuv.cu",
@@ -193,6 +240,7 @@ SOURCES = {
     "msab_apply_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
     "up_fuse_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
     "ffn_kernel": "animal_vision_tpu_torch/csrc/fused_mst.cu",
+    "gelu_probe": "animal_vision_tpu_torch/csrc/gelu_probe.cu",
 }
 REPLACES = {
     "iso_u8": "animal_vision_tpu/ops/fused_nonuv.py:199",
@@ -204,6 +252,7 @@ REPLACES = {
     "msab_apply_kernel": "animal_vision_tpu/ops/fused_msab.py:293",
     "up_fuse_kernel": "animal_vision_tpu/ops/fused_msab.py:848",
     "ffn_kernel": "animal_vision_tpu/ops/fused_mst.py:54",
+    "gelu_probe": "tools/exp_vpu_bf16.py:55",
 }
 # the degradation ladder: the budget part's species and pixel budget; the real
 # OOM's frame and the device memory left free beside the tensor that holds
@@ -909,6 +958,118 @@ def ablation_phase(device: torch.device, hw=MAIN_HW, frames=PROBE_FRAMES, varian
     return dict(variants=rows)
 
 
+def probe_sass() -> dict:
+    """Per kernel instance of ``csrc/gelu_probe.cu`` (``pointwise<case,T>``,
+    ``madd3x3<T>``), the count of each SASS opcode in the built library."""
+    from animal_vision_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path("gelu_probe"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    out, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"(pointwise|madd3x3)_kernelI(?:Li(\d+)E)?NS_\d+(F32|BF16)E", m.group(1))
+            current = f"{k.group(1)}<{k.group(2) + ',' if k.group(2) else ''}{k.group(3)}>" if k else m.group(1)
+            out[current] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if current is not None and m:
+            out[current][m.group(1)] = out[current].get(m.group(1), 0) + 1
+    return out
+
+
+def gelu_probe_phase(device: torch.device, reps=GELU_PROBE_REPS, n_points=GELU_ERF_POINTS) -> dict:
+    """The GELU probe (``csrc/gelu_probe.cu``, the port of
+    ``tools/exp_vpu_bf16.py:55``): its ten cases (five functions, f32 and
+    bf16) on a (4096, 512) array in [-2, 2). First the probe's own run, one
+    launch per case, whose counts are the launches. Then each kernel against
+    its plain version on the card (``gelu_probe.excess``) after 1, 8 and all
+    its applications, on that array and on ``n_points`` evenly spaced
+    points in [-8, 8]. Then its time (CUDA events), ns per element
+    application, ratio to ``single_madd`` of the same dtype and bound (the
+    float32 rate for f32 and for gelu_erf, which computes in float; the
+    bf16 rate for the other bf16 cases); ``single_madd``'s steady rate over
+    ``GELU_RATE_REPS`` applications; the SASS opcodes of every instance; and
+    max |gelu_deg11 - gelu_erf| over the [-8, 8] points."""
+    from animal_vision_tpu_torch.ops import gelu_probe as GP
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    x32 = torch.rand(GP.SHAPE, generator=gen, device=device) * 4 - 2
+    pts = torch.linspace(-8.0, 8.0, n_points, device=device).reshape(-1, GP.SHAPE[1])
+    tags = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    inputs = {dt: x32.to(dt) for dt in tags}
+    outs, launches = {}, {}
+    for dt, x in inputs.items():
+        GP.reset_launches()
+        outs.update({(case, dt): GP.run(case, x) for case, _ in GP.CASES})
+        sync(device)
+        launches[dt] = dict(GP.LAUNCHES)
+    checks = {}
+    for (case, dt), full in outs.items():
+        rows_checked = []
+        for where, x in (("[-2, 2)", inputs[dt]), ("[-8, 8]", pts.to(dt))):
+            for n in (*GELU_PROBE_CHECK_REPS, GP.REPS[case]):
+                got = full if where == "[-2, 2)" and n == GP.REPS[case] else GP.run(case, x, n)
+                with torch.no_grad():
+                    want = GP.run_plain(case, x, n)
+                err, ratio = GP.excess(case, got, want)
+                rows_checked.append(dict(input=where, reps=n, max_abs_err=err, ratio_to_bar=ratio,
+                                         max_abs_y=want.float().abs().max().item()))
+                if not ratio <= 1:
+                    raise AssertionError(f"gelu probe {case} {tags[dt]} on {where} after {n} applications: "
+                                         f"{err} from the plain version, {ratio} times its bar")
+        checks[(case, dt)] = rows_checked
+    rows = []
+    for (case, dt), checked in checks.items():
+        x, n = inputs[dt], GP.REPS[case]
+        ms = time_ms(lambda c=case, x=x: GP.run(c, x), reps, device)
+        plain_ms = time_ms(lambda c=case, x=x: GP.run_plain(c, x), 1, device, warmup=1)
+        nbytes = 2 * x.numel() * x.element_size()
+        ops = GELU_PROBE_OPS[case] * x.numel() * n
+        rate = BF16_OPS_PER_S if dt == torch.bfloat16 and case != "gelu_erf" else F32_OPS_PER_S
+        rows.append(dict(case=case, dtype=tags[dt], reps=n, shape=list(GP.SHAPE), launches=launches[dt][case],
+                         max_abs_err=max(c["max_abs_err"] for c in checked),
+                         ratio_to_bar=max(c["ratio_to_bar"] for c in checked), checks=checked, ms=ms,
+                         plain_ms=plain_ms, ns_per_elem_app=ms * 1e6 / (x.numel() * n),
+                         bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3, bound_rate_ops_per_s=rate,
+                         bound_by="bytes" if nbytes / HBM_BYTES_PER_S > ops / rate else "operations"))
+    for r in rows:
+        madd = next(q for q in rows if q["case"] == "single_madd" and q["dtype"] == r["dtype"])
+        r["ratio_to_single_madd"] = r["ns_per_elem_app"] / madd["ns_per_elem_app"]
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        log(f"[gelu probe] {r['case']:<11} {r['dtype']:<4} {r['ms']:.4f} ms per call of {r['reps']} applications, "
+            f"{r['ns_per_elem_app']:.4g} ns per element application ({r['ratio_to_single_madd']:.2f}x single_madd), "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_share']:.1%}); plain {r['plain_ms']:.1f} ms; "
+            f"max err {r['max_abs_err']:.3g} ({r['ratio_to_bar']:.3g} of its bar) over 1, 8 and {r['reps']} "
+            f"applications on [-2, 2) and [-8, 8]")
+    steady = {}
+    for dt, x in inputs.items():
+        ms = time_ms(lambda x=x: GP.run("single_madd", x, GELU_RATE_REPS), reps, device)
+        ops_per_s = 2 * x.numel() * GELU_RATE_REPS / (ms * 1e-3)
+        steady[tags[dt]] = dict(reps=GELU_RATE_REPS, ms=ms, ops_per_s=ops_per_s, f32_peak_share=ops_per_s / F32_OPS_PER_S,
+                                bf16_peak_share=ops_per_s / BF16_OPS_PER_S)
+        log(f"[gelu probe] single_madd {tags[dt]} over {GELU_RATE_REPS} applications: {ms:.4f} ms, "
+            f"{ops_per_s / 1e12:.2f} TFLOP/s ({ops_per_s / F32_OPS_PER_S:.1%} of the f32 peak, "
+            f"{ops_per_s / BF16_OPS_PER_S:.1%} of the bf16 peak)")
+    sass = probe_sass()
+    float_ops = ("FFMA", "FMUL", "FADD", "FMNMX", "HFMA2", "HMUL2", "HADD2", "HMNMX2", "F2F", "PRMT", "MUFU")
+    for inst, ops in sorted(sass.items()):
+        shown = {op: c for op, c in ops.items() if op.split(".")[0] in float_ops}
+        log(f"[gelu probe] SASS {inst}: {sum(ops.values())} instructions; "
+            + ", ".join(f"{op} {c}" for op, c in sorted(shown.items())))
+    deg11_vs_erf = (GP.run("gelu_deg11", pts, 1) - GP.run("gelu_erf", pts, 1)).abs().max().item()
+    by = {(r["case"], r["dtype"]): r for r in rows}
+    ratios = {tag: by[("gelu_erf", tag)]["ms"] / by[("gelu_deg11", tag)]["ms"] for tag in ("f32", "bf16")}
+    bf16_speedup = {case: by[(case, "f32")]["ms"] / by[(case, "bf16")]["ms"] for case, _ in GP.CASES}
+    log(f"[gelu probe] max |gelu_deg11 - gelu_erf| over {n_points} points in [-8, 8]: {deg11_vs_erf:.3g}; "
+        f"erf / deg-11 time: f32 {ratios['f32']:.2f}, bf16 {ratios['bf16']:.2f}; f32 / bf16 time: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in bf16_speedup.items()))
+    return dict(cases=rows, deg11_vs_erf_max_abs=deg11_vs_erf, erf_over_deg11_ms=ratios,
+                f32_over_bf16_ms=bf16_speedup, steady_single_madd=steady, sass_opcodes=sass)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1273,11 +1434,184 @@ def mst_l_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MS
     return result
 
 
-def wall_ms(fn, reps: int) -> dict:
-    """Host-clock milliseconds of ``reps`` calls, each ending synchronized:
-    median and p90 (the highest percentile with 10 samples beyond it at 100
-    calls)."""
-    fn()
+def zoo_views_mean(model, x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``model`` over the eight flip/transpose views of x, each
+    output taken back through its view: the self-ensemble written out."""
+    outs = []
+    for xf, yf, tr in itertools.product((False, True), repeat=3):
+        v = x.flip(2) if xf else x
+        v = v.flip(1) if yf else v
+        v = v.transpose(1, 2) if tr else v
+        y = model(v.contiguous())
+        y = y.transpose(1, 2) if tr else y
+        y = y.flip(1) if yf else y
+        outs.append(y.flip(2) if xf else y)
+    return sum(outs) / len(outs)
+
+
+def zoo_phase(device: torch.device, methods=ZOO_METHODS, hw=MAIN_HW, batch=BATCH, small=ZOO_SMALL,
+              reps=ZOO_FORWARD_REPS, species_reps=ZOO_SPECIES_REPS, tiling=ZOO_TILE, ensemble=ZOO_ENSEMBLE) -> dict:
+    """The zoo's nine other methods with seeded weights, through the entry
+    points a user calls (``zoo.model_generator``, ``providers.attach_model``,
+    ``tiling.predict_tiled``, ``ensemble.forward_ensemble``). For each: the
+    forward on the card against the same model on the CPU at ``small``
+    (within 1e-4 of max |y|; TF32 off); one 1080p forward (AWAN through
+    ``predict_tiled``): its FLOPs (``FlopCounterMode``, as
+    ``models/summary.py`` counts them: matrix products and convolutions),
+    peak memory and output check from a first call, ms (median of the next
+    ``reps``, host clock ended by a synchronize), the share of 67 TFLOP/s,
+    and the device busy share from a profiled call; then kestrel with
+    ``attach_model`` on ``batch`` 1080p frames through ``visualize`` and
+    ``visualize_batch_device`` (the provider sees 270x480 frames), the
+    ``blur_uv`` launches counted and the peak memory read around that run,
+    fps, and the CPU path on a
+    small frame at >= 40 dB with the baseline within 1 LSB, and the top
+    kernels of one profiled batch. Last, one
+    ``forward_ensemble("mean")`` at 272x480 against the mean of the eight
+    forwards written out."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from animal_vision_tpu_torch.models import ensemble as E
+    from animal_vision_tpu_torch.models import tiling as TL
+    from animal_vision_tpu_torch.models import zoo
+    from animal_vision_tpu_torch.models.providers import attach_model
+    from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
+
+    rng = np.random.default_rng(SEED + 13)
+    h, w = hw
+    host = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    frames = torch.from_numpy(host).to(device)
+    x = (frames[:1].to(torch.float32) / 255.0).contiguous()
+    small_host = rng.integers(0, 256, (*SMALL_HW, 3), dtype=np.uint8)
+    tile, overlap, per_call = tiling
+    result = {}
+    for method in methods:
+        t_method = time.perf_counter()
+        model = zoo.model_generator(method, device=device, seed=SEED)
+        cpu_model = zoo.model_generator(method, device="cpu", seed=SEED)
+        errs = []
+        with torch.no_grad():
+            for sh, sw in small:
+                xs = torch.from_numpy(rng.random((1, sh, sw, 3), dtype=np.float32))
+                want = cpu_model(xs)
+                got = model(xs.to(device)).cpu()
+                scale = max(1.0, want.abs().max().item())
+                err = (got - want).abs().max().item()
+                if not (got.shape == (1, sh, sw, 31) and torch.isfinite(got).all().item() and err <= ZOO_REL_TOL * scale):
+                    raise AssertionError(f"{method} at {sh}x{sw}: {err} from the CPU (max |y| {scale})")
+                errs.append(dict(hw=[sh, sw], max_abs_err=err, max_abs=scale))
+        del cpu_model
+
+        if method == "awan":
+            def apply_fn(t, m=model):
+                return torch.cat([m(t[i:i + per_call]) for i in range(0, t.shape[0], per_call)])
+
+            def forward(m=model):
+                return TL.predict_tiled(apply_fn, x[0], tile=tile, overlap=overlap)[None]
+        else:
+            def forward(m=model):
+                return m(x)
+        cuda = device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        base_mem = torch.cuda.memory_allocated(device) if cuda else 0
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            y = forward()
+            sync(device)
+        flops = counter.get_total_flops()
+        peak = torch.cuda.max_memory_allocated(device) - base_mem if cuda else 0
+        if not (y.shape == (1, h, w, 31) and torch.isfinite(y).all().item()):
+            raise AssertionError(f"{method} 1080p forward: shape {tuple(y.shape)} or not finite")
+        del y
+        with torch.no_grad():
+            fw = wall_ms(lambda: (forward(), sync(device)), reps, warmup=False)
+            with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+                t0 = time.perf_counter()
+                forward()
+                sync(device)
+                wall_us = (time.perf_counter() - t0) * 1e6
+        events = trace_device_events(prof)
+        busy = busy_us(events) / wall_us
+        tflops = flops / (fw["median"] * 1e-3) / 1e12
+        row = dict(small=errs, forward_ms=fw, flops=flops, tflops=tflops, f32_peak_share=tflops * 1e12 / F32_OPS_PER_S,
+                   peak_bytes=peak, device_busy_share=busy, tiled=method == "awan", top_kernels=top_kernels(events))
+        log(f"[zoo] {method:<10} card vs CPU max {max(e['max_abs_err'] for e in errs):.3g} (of max |y| "
+            f"{max(e['max_abs'] for e in errs):.3g}); {h}x{w}{' tiled' if method == 'awan' else ''}: median "
+            f"{fw['median']:.1f} ms (p90 {fw['p90']:.1f}), {flops / 1e12:.3f} TFLOP, {tflops:.2f} TFLOP/s = "
+            f"{row['f32_peak_share']:.1%} of 67, peak {peak / 2 ** 30:.2f} GiB, device busy {busy:.1%}; top kernels "
+            + "; ".join(f"{k[:56]} {v:.1f} ms" for k, v in row["top_kernels"]))
+        del model
+        if cuda:
+            torch.cuda.empty_cache()
+
+        animal = attach_model(Kestrel(device), method)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        base_mem = torch.cuda.memory_allocated(device) if cuda else 0
+        with torch.no_grad(), plain_forbidden_on_cuda():
+            reset_counters()
+            base1, out1 = animal.visualize(host[0])
+            base_b, out_b = animal.visualize_batch_device(frames)
+            sync(device)
+            launches = counters()
+        kestrel_peak = torch.cuda.max_memory_allocated(device) - base_mem if cuda else 0
+        if cuda and launches["blur_uv"] == 0:
+            raise AssertionError(f"kestrel+{method}: no blur_uv launch on the main path")
+        no_rungs(f"zoo {method}")
+        if out1.shape != (h, w, 3) or tuple(out_b.shape) != (batch, h, w, 3):
+            raise AssertionError(f"kestrel+{method}: output shapes {out1.shape}, {tuple(out_b.shape)}")
+        cpu_animal = attach_model(Kestrel("cpu"), method)
+        with torch.no_grad():
+            cpu_base, cpu_out = cpu_animal.visualize(small_host)
+            card_base, card_out = animal.visualize(small_host)
+        db = psnr_db(torch.from_numpy(card_out), torch.from_numpy(cpu_out))
+        base_lsb = max_lsb(torch.from_numpy(card_base), torch.from_numpy(cpu_base))
+        if db < UV_MIN_DB or base_lsb > TOL_LSB:
+            raise AssertionError(f"kestrel+{method}: {db:.2f} dB from the CPU path (baseline {base_lsb} LSB)")
+        del cpu_animal
+        vis = wall_ms(lambda: animal.visualize(host[0]), species_reps)
+        bat = wall_ms(lambda: (animal.visualize_batch_device(frames), sync(device)), species_reps)
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+            animal.visualize_batch_device(frames)
+            sync(device)
+        batch_top = top_kernels(trace_device_events(prof))
+        no_rungs(f"zoo {method} timing")
+        row.update(kestrel=dict(psnr_cpu_db=db, baseline_max_lsb_cpu=base_lsb, blur_uv_launches=launches["blur_uv"],
+                                peak_bytes=kestrel_peak,
+                                visualize_ms=vis, visualize_fps=1e3 / vis["median"], batch_ms=bat,
+                                batch_fps=batch * 1e3 / bat["median"], batch_top_kernels=batch_top))
+        log(f"[zoo] kestrel+{method:<10} {db:.2f} dB vs the CPU (baseline {base_lsb} LSB), blur_uv launches "
+            f"{launches['blur_uv']}, peak {kestrel_peak / 2 ** 30:.2f} GiB; visualize {1e3 / vis['median']:.2f} fps, "
+            f"batch of {batch} on device "
+            f"{batch * 1e3 / bat['median']:.2f} fps (top kernels of a batch: "
+            + "; ".join(f"{k[:56]} {v:.1f} ms" for k, v in batch_top) + f"); {time.perf_counter() - t_method:.1f} s")
+        del animal
+        if cuda:
+            torch.cuda.empty_cache()
+        result[method] = row
+
+    method, (eh, ew) = ensemble
+    model = zoo.model_generator(method, device=device, seed=SEED)
+    xe = torch.from_numpy(rng.random((1, eh, ew, 3), dtype=np.float32)).to(device)
+    with torch.no_grad():
+        got = E.forward_ensemble(model, xe, "mean")
+        want = zoo_views_mean(model, xe)
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    if not (got.shape == (1, eh, ew, 31) and err <= ZOO_ENSEMBLE_REL_TOL * scale):
+        raise AssertionError(f"forward_ensemble({method}) at {eh}x{ew}: {err} from the mean of its views")
+    log(f"[zoo] forward_ensemble(mean) of {method} at {eh}x{ew}: max {err:.3g} from the mean of its 8 forwards")
+    result["ensemble"] = dict(method=method, hw=[eh, ew], max_abs_err=err, max_abs=scale)
+    return result
+
+
+def wall_ms(fn, reps: int, warmup: bool = True) -> dict:
+    """Host-clock milliseconds of ``reps`` calls, each ending synchronized,
+    after one untimed call unless ``warmup`` is False: median and p90 (the
+    highest percentile with 10 samples beyond it at 100 calls)."""
+    if warmup:
+        fn()
     samples = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -1513,23 +1847,40 @@ def library_phase(device: torch.device, hw=LIBRARY_HW, batch=BATCH // 2, tol=LIB
 # ---------------------------------------------------------------------------
 
 
-def trace_device_events(prof) -> list[dict]:
-    """The device-side events of a ``torch.profiler`` run (kernels, memcpys,
-    memsets) from its Chrome trace: name, category, stream, start and
-    duration in µs, bytes."""
+def trace_events(prof) -> list[dict]:
+    """The events of a ``torch.profiler`` run, from its Chrome trace."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
+        return json.loads(path.read_text())["traceEvents"]
+
+
+def device_events(events: list[dict]) -> list[dict]:
+    """The device-side events of a trace (kernels, memcpys, memsets): name,
+    category, stream, start and duration in µs, bytes, correlation id."""
     out = []
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             args = e.get("args", {})
             out.append(dict(name=e["name"], cat=e["cat"], stream=args.get("stream"), ts=float(e["ts"]),
-                            dur=float(e["dur"]), bytes=int(args.get("bytes", 0))))
+                            dur=float(e["dur"]), bytes=int(args.get("bytes", 0)), correlation=args.get("correlation")))
     return out
+
+
+def trace_device_events(prof) -> list[dict]:
+    return device_events(trace_events(prof))
+
+
+def top_kernels(events: list[dict], n: int = 3) -> list[tuple[str, float]]:
+    """The ``n`` kernel names with the most device time in ``events``, with
+    their summed milliseconds."""
+    by = {}
+    for e in events:
+        if e["cat"] == "kernel":
+            by[e["name"]] = by.get(e["name"], 0.0) + e["dur"] / 1e3
+    return sorted(by.items(), key=lambda kv: -kv[1])[:n]
 
 
 def busy_us(events: list[dict]) -> float:
@@ -1547,6 +1898,66 @@ def busy_us(events: list[dict]) -> float:
     return total
 
 
+def record_match(raw: list[dict], events: list[dict], within: tuple[float, float] | None = None) -> dict:
+    """How a trace's device records match the runtime's calls, by
+    correlation id, for the calls that start inside ``within`` (µs, the
+    whole trace when None): memcpy calls and kernel launches, the count of
+    each, the calls without a record (their order among the memcpy calls
+    or launches and µs after the first), and the least and largest start of
+    a memcpy record after its call (µs; below 0 where the device's clock
+    runs ahead of the host's in the trace)."""
+    lo, hi = within or (-np.inf, np.inf)
+    calls = sorted((e for e in raw if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and "correlation" in e.get("args", {}) and lo <= float(e["ts"]) <= hi),
+                   key=lambda e: float(e["ts"]))
+    records = {e["correlation"]: e for e in events}
+
+    def missing(group):
+        return [dict(order=i, after_first_us=float(c["ts"]) - float(group[0]["ts"]))
+                for i, c in enumerate(group) if c["args"]["correlation"] not in records]
+
+    memcpys = [c for c in calls if c["name"].startswith("cudaMemcpy")]
+    launches = [c for c in calls if "LaunchKernel" in c["name"]]
+    lags = [records[c["args"]["correlation"]]["ts"] - float(c["ts"]) for c in memcpys
+            if c["args"]["correlation"] in records]
+    lost = missing(memcpys)
+    return dict(memcpy_calls=len(memcpys), memcpy_records=len(memcpys) - len(lost), calls_without_record=lost,
+                launches=len(launches), launches_without_record=missing(launches),
+                record_lag_us=[min(lags), max(lags)] if lags else None)
+
+
+def profiled_stream_run(ex, frames: list, wants: list, on_card: bool) -> dict:
+    """``ex.run`` of ``frames`` twice in one ``torch.profiler`` session,
+    the second inside a ``record_function`` range: the device events whose
+    runtime calls lie in that range (the checked run), its wall µs, whether
+    every frame of it equals ``wants``, and how the trace's records match
+    the runtime's calls in each run (``record_match``). The first run
+    absorbs the records the profiler can drop at the start of a session:
+    after the zoo phase, each session lost the record of its first memcpy
+    call (and for some species of its first kernel launch), its runtime
+    call in the trace and its frames right, while every later record
+    arrived (PR 12)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    outs = []
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        ex.run(iter(frames), lambda _frame: None)
+        with record_function("checked run"):
+            t0 = time.perf_counter()
+            ex.run(iter(frames), outs.append)
+            wall_us = (time.perf_counter() - t0) * 1e6
+    raw = trace_events(prof)
+    events = device_events(raw)
+    span = next((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in raw
+                if e.get("ph") == "X" and e.get("name") == "checked run")
+    checked = {e["args"]["correlation"] for e in raw if e.get("ph") == "X" and "correlation" in e.get("args", {})
+               and e.get("cat") in ("cuda_runtime", "cuda_driver") and span[0] <= float(e["ts"]) <= span[1]}
+    return dict(events=[e for e in events if e["correlation"] in checked], wall_us=wall_us,
+                outputs_equal=len(outs) == len(wants) and all(np.array_equal(a, b) for a, b in zip(outs, wants)),
+                **record_match(raw, events, span), first_run=record_match(raw, events, (-np.inf, span[0])))
+
+
 def stream_phase(device: torch.device, reference: dict, names=STREAM_SPECIES, n_frames=STREAM_FRAMES,
                  batch=STREAM_BATCH, runs=STREAM_RUNS, hw=MAIN_HW) -> dict:
     """Host frames through ``StreamingExecutor(batch, split=False)``: for
@@ -1558,13 +1969,13 @@ def stream_phase(device: torch.device, reference: dict, names=STREAM_SPECIES, n_
     after); in one ``torch.profiler`` run every memcpy of frame data (host
     to card or back, at least one frame's bytes) is pinned, runs on a
     stream apart from the compute kernels' and the copies add up to every
-    frame once each way. Measured: streamed fps (median, p90 of ``runs``
+    frame once each way, and that run's frames equal ``visualize_batch``'s
+    (``profiled_stream_run``, which also matches the trace's records to the
+    runtime's calls). Measured: streamed fps (median, p90 of ``runs``
     runs, host clock around ``run``), the executor's stage split per frame
     and the process's minor page faults per frame (median run), the card's
     busy share in the profiled run, H2D and D2H GB/s. ``reference``
     holds each species' ``visualize`` and batch-on-card fps."""
-    from torch.profiler import ProfilerActivity, profile
-
     from animal_vision_tpu_torch.native import ring as R
     from animal_vision_tpu_torch.pipeline import StreamingExecutor
     from animal_vision_tpu_torch.species import NON_UV_NAMES, get_animal
@@ -1595,8 +2006,10 @@ def stream_phase(device: torch.device, reference: dict, names=STREAM_SPECIES, n_
             if on_card and (set(moved) != {kernel} or moved[kernel] < n_batches or moved[kernel] != want_launches):
                 raise AssertionError(f"{name}: launches over the streamed run {moved}, expected {kernel} for each "
                                      f"of {n_batches} batches")
+            wants = []
             for start in range(0, n_frames, batch):
                 _, want = animal.visualize_batch(np.stack(frames[start:start + batch]))
+                wants.extend(want)
                 for i, w in enumerate(want):
                     if not np.array_equal(outs[start + i], w):
                         raise AssertionError(f"{name}: streamed frame {start + i} differs from visualize_batch "
@@ -1614,12 +2027,8 @@ def stream_phase(device: torch.device, reference: dict, names=STREAM_SPECIES, n_
                 fps.append(n / (time.perf_counter() - t0))
                 faults.append((resource.getrusage(resource.RUSAGE_SELF).ru_minflt - minflt) / n_frames)
                 splits.append({k: v * 1e3 / n_frames for k, v in ex.timer.totals.items()})
-            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
-            with profile(activities=activities) as prof:
-                t0 = time.perf_counter()
-                ex.run(iter(frames), drop)
-                wall_us = (time.perf_counter() - t0) * 1e6
-            events = trace_device_events(prof)
+            prof_run = profiled_stream_run(ex, frames, wants, on_card)
+            events, wall_us = prof_run.pop("events"), prof_run["wall_us"]
             kernels = [e for e in events if e["cat"] == "kernel"]
             copies = [e for e in events if e["cat"] == "gpu_memcpy"]
             # frame data crosses between host and card; a device-to-device
@@ -1632,11 +2041,14 @@ def stream_phase(device: torch.device, reference: dict, names=STREAM_SPECIES, n_
             h2d = [e for e in frame_copies if "HtoD" in e["name"]]
             d2h = [e for e in frame_copies if "DtoH" in e["name"]]
             frame_total = n_frames * frame_bytes
+            if not prof_run["outputs_equal"]:
+                raise AssertionError(f"{name}: the profiled run's frames differ from visualize_batch")
             if on_card and (any("Pinned" not in e["name"] for e in frame_copies) or copy_streams & kernel_streams
                             or sum(e["bytes"] for e in h2d) != frame_total
                             or sum(e["bytes"] for e in d2h) != frame_total):
                 raise AssertionError(f"{name}: frame copies {kinds} on streams {sorted(copy_streams)}, kernels on "
-                                     f"{sorted(kernel_streams)}, {sum(e['bytes'] for e in h2d)} bytes H2D")
+                                     f"{sorted(kernel_streams)}, {sum(e['bytes'] for e in h2d)} bytes H2D and "
+                                     f"{sum(e['bytes'] for e in d2h)} D2H of {frame_total}; {prof_run}")
             med = int(np.argsort(fps)[len(fps) // 2])
             split = splits[med]
             h2d_gbs = frame_bytes / (split["h2d"] * 1e-3) / 1e9 if on_card else None
@@ -1650,7 +2062,7 @@ def stream_phase(device: torch.device, reference: dict, names=STREAM_SPECIES, n_
                 profiled_wall_us=wall_us, device_busy_us=busy, device_busy_share=busy / wall_us,
                 compute_busy_us=busy_us(kernels), memcpy_kinds=kinds, copy_streams=sorted(copy_streams),
                 kernel_streams=sorted(kernel_streams), other_memcpys=len(copies) - len(frame_copies),
-                page_faults_per_frame=faults[med],
+                page_faults_per_frame=faults[med], profiled_run=prof_run,
             )
             log(f"[stream] {name:<8} {n_frames} frames of {hw[0]}x{hw[1]}, batch {batch}: streamed "
                 f"{rows[name]['fps_median']:.1f} fps (p90 {rows[name]['fps_p90']:.1f}; runs "
@@ -1660,12 +2072,14 @@ def stream_phase(device: torch.device, reference: dict, names=STREAM_SPECIES, n_
             log(f"[stream] {name:<8} ms per frame: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
                 + f"; {faults[med]:.0f} page faults per frame; H2D {h2d_gbs} GB/s, D2H {d2h_gbs} GB/s; device busy {busy / wall_us:.1%} of "
                 f"{wall_us / 1e3:.1f} ms (kernels {busy_us(kernels) / wall_us:.1%}); copies {kinds}, frame copies on "
-                f"streams {sorted(copy_streams)}, kernels on {sorted(kernel_streams)}; ring {ex.ring.library}")
+                f"streams {sorted(copy_streams)}, kernels on {sorted(kernel_streams)}; memcpy records "
+                f"{prof_run['memcpy_records']} of {prof_run['memcpy_calls']} calls, record after call "
+                f"{prof_run['record_lag_us']} µs; ring {ex.ring.library}")
     return dict(species=rows, frames=n_frames, batch=batch, hw=list(hw))
 
 
 def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], ffn_rows: list[dict],
-            launches: dict, ablation: dict) -> dict:
+            launches: dict, ablation: dict, gelu_probe: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
     plain time, bound and library time of its heaviest main-path case at
     1080p. Launches come from the main-path run of the kernel's species.
@@ -1734,6 +2148,14 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_tc_ms"], bound_by=rep["bound_tc_by"],
         library_ms=None, bound_f32_simt_ms=rep["bound_ms"],
     ))
+    for r in gelu_probe["cases"]:
+        out.append(dict(
+            name=f"gelu_probe.{r['case']}.{r['dtype']}", route="cuda", source=SOURCES["gelu_probe"],
+            replaces=REPLACES["gelu_probe"], launches=r["launches"], max_abs_err=r["max_abs_err"],
+            case=f"{r['reps']} applications over {r['shape'][0]}x{r['shape'][1]}, the probe's own run",
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            ns_per_elem_app=r["ns_per_elem_app"], ratio_to_single_madd=r["ratio_to_single_madd"],
+        ))
     return {"kernels": out}
 
 
@@ -1755,6 +2177,7 @@ def main() -> int:
     mst_rows = mst_kernels_phase(device)
     ffn_rows = ffn_phase(device)
     ablation = ablation_phase(device)
+    gelu_probe = gelu_probe_phase(device)
     no_rungs("kernels")
     main_run = main_path_phase(device)
     no_rungs("main")
@@ -1764,6 +2187,8 @@ def main() -> int:
     no_rungs("main mst++")
     mst_l_run = mst_l_main_path_phase(device)
     no_rungs("main mst-l")
+    zoo_run = zoo_phase(device)
+    no_rungs("zoo")
     stream_run = stream_phase(device, {**main_run["species"], **uv_run["species"]})
     no_rungs("stream")
     library_run = library_phase(device)
@@ -1783,12 +2208,13 @@ def main() -> int:
         f"({uv_run['hm_visualize_fps_without_rat_uv']:.1f} fps)")
     launches = {**main_run["launches"], "blur_uv": uv_run["launches"]["blur_uv"],
                 **{k: mst_run["launches"][k] for k in MST_PER_FORWARD}, "ffn_kernel": mst_l_run["launches"]["ffn"]}
-    kernels = summary(kernel_rows, blur_rows, mst_rows, ffn_rows, launches, ablation)
+    kernels = summary(kernel_rows, blur_rows, mst_rows, ffn_rows, launches, ablation, gelu_probe)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(device=info, build=build, ablation=ablation, kernel_cases=kernel_rows,
                                       blur_cases=blur_rows,
                                       mst_cases=mst_rows, ffn_cases=ffn_rows, main_path=main_run,
                                       uv_main_path=uv_run, mst_main_path=mst_run, mst_l_main_path=mst_l_run,
+                                      gelu_probe=gelu_probe, zoo=zoo_run,
                                       stream=stream_run, library=library_run, profile=profile_run,
                                       degrade=degrade_run,
                                       kernels=kernels["kernels"], seconds=time.perf_counter() - t0), indent=1))

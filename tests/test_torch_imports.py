@@ -60,7 +60,9 @@ def test_port_imports_no_jax_package_or_cv2():
         "mantis_shrimp", "jumping_spider", "dragonfly", "hummingbird", "damselfish", "anableps", "anchovy",
         "guppy", "morpho", "heliconius", "pieris", "rat_uv")} | {f"animal_vision_tpu_torch.{n}" for n in (
         "utils.timing", "utils.profiling", "native.ring", "io.renderer", "io.image", "io.video", "io.webcam",
-        "io.gallery", "pipeline.executor", "service", "cli")}
+        "io.gallery", "pipeline.executor", "service", "cli", "ops.gelu_probe", "models.common", "models.metrics",
+        "models.simple_nets", "models.hinet", "models.mprnet", "models.restormer", "models.mirnet", "models.hdnet",
+        "models.sgn", "models.awan", "models.tiling", "models.ensemble", "models.summary")}
     assert expected <= set(report["modules"])
 
 

@@ -20,6 +20,7 @@ from animal_vision_tpu_torch.ops import fused_blur as B
 from animal_vision_tpu_torch.ops import fused_msab as M
 from animal_vision_tpu_torch.ops import fused_mst as T
 from animal_vision_tpu_torch.ops import fused_nonuv as F
+from animal_vision_tpu_torch.ops import gelu_probe as GP
 from animal_vision_tpu_torch.species import NON_UV_NAMES, PORTED_UV_NAMES, get_animal
 from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS, Cat, NonUVAnimal
 from animal_vision_tpu_torch.species.uv.goldfish import Goldfish
@@ -836,3 +837,35 @@ def test_streaming_executor_on_card(cuda, no_plain_on_cuda, monkeypatch, name):
     assert not any(np.shares_memory(a, b) for i, a in enumerate(outs) for b in outs[i + 1:])
     assert Path(ex.ring.library).parent == R.BUILD_DIR and ex.ring.reads == 3
     assert all(ex.timer.counts[k] == 3 for k in ("h2d", "compute", "d2h"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [name for name, _ in GP.CASES])
+def test_gelu_probe_kernel(cuda, case, dtype):
+    """The probe's kernel against its plain version on the card after 1, 8
+    and all its applications, on [-2, 2) and on [-8, 8], held by
+    ``gelu_probe.excess``: float32 within 1e-5 of min(1, max |y|) (the
+    stencil of max |y|: its values grow 5.5^32-fold), bf16 within 2^-6 of
+    each |y| (both sides round each operation once)."""
+    x = torch.rand(1024, 64, generator=torch.Generator(device="cuda").manual_seed(3), device=cuda) * 4 - 2
+    wide = torch.linspace(-8.0, 8.0, 1024 * 64, device=cuda).reshape(1024, 64)
+    for inp in (x.to(dtype), wide.to(dtype)):
+        for reps in (1, 8, GP.REPS[case]):
+            GP.reset_launches()
+            got = GP.run(case, inp, reps)
+            assert GP.LAUNCHES[case] == 1 and got.dtype == dtype
+            err, ratio = GP.excess(case, got, GP.run_plain(case, inp, reps))
+            assert ratio <= 1, (reps, err, ratio)
+
+
+@pytest.mark.parametrize("method", ["awan", "edsr", "hdnet", "hinet", "hrnet", "hscnn_plus", "mirnet", "mprnet",
+                                    "restormer"])
+def test_zoo_model_on_card_vs_cpu(cuda, method):
+    """The registry configuration with the same seeded weights on the card
+    and on the CPU, at an odd size: within 1e-4 of max |y| (TF32 off)."""
+    x = torch.rand(2, 37, 53, 3, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        want = zoo.model_generator(method, device="cpu", seed=5)(x)
+        got = zoo.model_generator(method, device=cuda, seed=5)(x.to(cuda)).cpu()
+    assert got.shape == want.shape == (2, 37, 53, 31)
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
