@@ -95,6 +95,20 @@ raises on failure:
    kernels', the trace's memcpy records matched to the runtime's calls;
    streamed fps beside ``visualize`` and batch-on-card fps, the executor's
    stage split, page faults, the card's busy share, H2D and D2H GB/s;
+   then the serving layer (``serve_phase``): the port's ASGI app on the
+   card, served by its stdlib server on 127.0.0.1, with the service's cv2
+   codec swapped for raw uint8 frames in data URIs (``raw_codec``; the
+   card's machine has no cv2, so ``/getpic`` and ``/getgallery``, which draw
+   with cv2, run in the CPU tests only and the log names them): the static
+   routes and ``/gettip`` over TCP, then for the same five species 10
+   ``/getframe`` requests and 10 frames over one ``/ws`` socket over TCP
+   and 3 Socket.IO clients of 5 frames each in process, a bad frame first;
+   every frame equal to ``visualize`` on the card bit for bit, the
+   species' kernel launched per request as ``visualize`` launches it,
+   every Socket.IO frame answered once, to its client, in order; ms per
+   request (median, p90) beside ``visualize`` alone, the host's JSON and
+   base64 work per frame and the stdlib server's read of one masked
+   ``/ws`` frame;
    then the library: the functions no species calls (band integrals,
    ``map_uv_purple_yellow``, the general Gaussian blurs, ``tapetum_bloom``,
    ``rod_vision``, ``unsharp_mask``, ``dog_bandpass``, ``remap_bilinear``,
@@ -130,6 +144,8 @@ report goes to ``chiprun_out/chip_smoke_report.json``.
 
 from __future__ import annotations
 
+import asyncio
+import base64
 import contextlib
 import itertools
 import json
@@ -271,6 +287,17 @@ STREAM_SPECIES = ("dog", "deer", "rat", "cat", "kestrel")
 STREAM_FRAMES = 50
 STREAM_BATCH = 4
 STREAM_RUNS = 3
+# the serving phase: timed requests per species and route (and frames over
+# one /ws socket), the Socket.IO clients and frames each, the raw codec's
+# MIME type, the longest wait for a reply, and the routes not run on the card
+SERVE_REPS = 10
+SERVE_SIO = (3, 5)
+SERVE_RAW_MIME = "application/x-raw-rgb"
+SERVE_TIMEOUT_S = 120
+SERVE_NOT_ON_CARD = {
+    "/getpic": "compose_split draws its labels with cv2.putText (io/renderer.py)",
+    "/getgallery": "build_labeled_grid resizes and labels its tiles with cv2 (io/gallery.py)",
+}
 REPORT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_report.json"
 
 
@@ -2078,6 +2105,372 @@ def stream_phase(device: torch.device, reference: dict, names=STREAM_SPECIES, n_
     return dict(species=rows, frames=n_frames, batch=batch, hw=list(hw))
 
 
+
+# ---------------------------------------------------------------------------
+# The serving layer
+# ---------------------------------------------------------------------------
+
+
+def raw_uri(img: np.ndarray) -> str:
+    """A uint8 (H, W, 3) frame as a data URI of its raw bytes. The shape
+    has no comma: the service takes the payload after the URI's first one."""
+    h, w, c = img.shape
+    return f"data:{SERVE_RAW_MIME};shape={h}x{w}x{c};base64," + base64.b64encode(np.ascontiguousarray(img)).decode()
+
+
+def raw_frame(uri: str) -> np.ndarray:
+    head, payload = uri.split(",", 1)
+    if not head.startswith(f"data:{SERVE_RAW_MIME};shape="):
+        raise AssertionError(f"not a raw frame: {head[:80]}")
+    shape = tuple(int(v) for v in head.split("shape=", 1)[1].split(";", 1)[0].split("x"))
+    return np.frombuffer(base64.b64decode(payload), np.uint8).reshape(shape)
+
+
+@contextlib.contextmanager
+def raw_codec(hw: tuple[int, int]):
+    """The service's image codec (cv2, which the card's machine lacks)
+    swapped for raw uint8 bytes of (H, W, 3) frames, for the length of the
+    block: ``_decode_image`` takes ``H * W * 3`` bytes and raises
+    ``ValueError`` on any other length, ``_encode_data_uri`` gives
+    ``raw_uri`` of the frame whatever the format asked. Channels are
+    reversed where the service would convert between BGR and RGB."""
+    from animal_vision_tpu_torch import service
+
+    shape = (*hw, 3)
+    saved = service._decode_image, service._encode_data_uri
+
+    def decode(data: bytes, assume_bgr: bool) -> np.ndarray:
+        if len(data) != int(np.prod(shape)):
+            raise ValueError(f"could not decode image bytes: {len(data)} bytes, not a raw {shape} frame")
+        img = np.frombuffer(data, np.uint8).reshape(shape).copy()
+        return img if assume_bgr else img[..., ::-1].copy()
+
+    def encode(img: np.ndarray, fmt: str, assume_bgr: bool) -> str:
+        return raw_uri(img if assume_bgr else img[..., ::-1])
+
+    service._decode_image, service._encode_data_uri = decode, encode
+    try:
+        yield
+    finally:
+        service._decode_image, service._encode_data_uri = saved
+
+
+def masked_frame(opcode: int, payload: bytes, fin: bool = True) -> bytes:
+    """A client WebSocket frame, masked as browsers mask (RFC 6455 §5.3);
+    ``fin=False`` starts or continues a fragmented message."""
+    n = len(payload)
+    head = bytes([(0x80 if fin else 0) | opcode]) + (bytes([0x80 | n]) if n < 126 else bytes([0x80 | 126]) + n.to_bytes(2, "big")
+                                     if n < 1 << 16 else bytes([0x80 | 127]) + n.to_bytes(8, "big"))
+    mask = os.urandom(4)
+    return head + mask + (np.frombuffer(payload, np.uint8) ^ np.resize(np.frombuffer(mask, np.uint8), n)).tobytes()
+
+
+async def read_ws_frame(reader) -> tuple[int, bytes]:
+    """One unmasked server frame: (opcode, payload)."""
+    b1, b2 = await reader.readexactly(2)
+    n = b2 & 0x7F
+    if n >= 126:
+        n = int.from_bytes(await reader.readexactly(2 if n == 126 else 8), "big")
+    return b1 & 0x0F, await reader.readexactly(n)
+
+
+async def http_exchange(reader, writer, method: str, path: str, body: bytes = b"") -> tuple[int, bytes]:
+    """One HTTP/1.1 request on a kept-alive connection: (status, body)."""
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: localhost\r\nContent-Type: application/json\r\n"
+                 f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    await writer.drain()
+    status = int((await reader.readline()).split()[1])
+    length = None
+    while (line := await reader.readline()) not in (b"\r\n", b""):
+        key, _, value = line.decode().partition(":")
+        if key.strip().lower() == "content-length":
+            length = int(value)
+    return status, await reader.readexactly(length)
+
+
+async def ws_upgrade(port: int, path: str):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    key = base64.b64encode(os.urandom(16)).decode()
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: localhost\r\nUpgrade: websocket\r\nConnection: Upgrade\r\n"
+                 f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n".encode())
+    if b" 101 " not in await reader.readline():
+        raise AssertionError(f"{path}: no WebSocket upgrade")
+    while (await reader.readline()) not in (b"\r\n", b""):
+        pass
+    return reader, writer
+
+
+class SioClient:
+    """An in-process Socket.IO client of the ASGI app (``socketio.ASGIApp``):
+    the Engine.IO open and CONNECT, then one reader task that stamps each
+    event with its arrival time (server pings are answered and dropped)."""
+
+    def __init__(self, app):
+        self.to_app, self.from_app = asyncio.Queue(), asyncio.Queue()
+        scope = {"type": "websocket", "path": "/socket.io/", "query_string": b"EIO=4&transport=websocket"}
+        self.task = asyncio.ensure_future(app(scope, self.to_app.get, self.from_app.put))
+        self.events: asyncio.Queue = asyncio.Queue()
+        self.reader = None
+
+    async def _next(self) -> str:
+        msg = await asyncio.wait_for(self.from_app.get(), SERVE_TIMEOUT_S)
+        if msg["type"] != "websocket.send":
+            raise AssertionError(f"Socket.IO: {msg}")
+        return msg["text"]
+
+    async def connect(self) -> None:
+        await self.to_app.put({"type": "websocket.connect"})
+        if (await asyncio.wait_for(self.from_app.get(), SERVE_TIMEOUT_S))["type"] != "websocket.accept":
+            raise AssertionError("Socket.IO: not accepted")
+        if not (await self._next()).startswith("0"):
+            raise AssertionError("Socket.IO: no Engine.IO open")
+        await self.to_app.put({"type": "websocket.receive", "text": "40"})
+        if not (await self._next()).startswith("40"):
+            raise AssertionError("Socket.IO: no CONNECT ack")
+        self.reader = asyncio.ensure_future(self._read())
+
+    async def _read(self) -> None:
+        while True:
+            text = await self._next()
+            if text == "2":
+                await self.to_app.put({"type": "websocket.receive", "text": "3"})
+                continue
+            if not text.startswith("42"):
+                raise AssertionError(f"Socket.IO: unexpected packet {text[:40]}")
+            await self.events.put((time.perf_counter(), json.loads(text[2:])))
+
+    async def send(self, *args) -> float:
+        await self.to_app.put({"type": "websocket.receive", "text": "42" + json.dumps(["sendimage", *args])})
+        return time.perf_counter()
+
+    async def event(self):
+        return await asyncio.wait_for(self.events.get(), SERVE_TIMEOUT_S)
+
+    async def close(self) -> None:
+        self.reader.cancel()
+        await self.to_app.put({"type": "websocket.disconnect", "code": 1000})
+        await asyncio.wait_for(self.task, SERVE_TIMEOUT_S)
+
+
+def ms_stats(samples: list[float]) -> dict:
+    return dict(median=float(np.median(samples)), p90=float(np.percentile(samples, 90)), n=len(samples),
+                samples=samples)
+
+
+def serve_phase(device: torch.device, names=STREAM_SPECIES, hw=MAIN_HW, reps=SERVE_REPS,
+                sio_shape=SERVE_SIO) -> dict:
+    """The port's ASGI app (``server.app.build_asgi_app(device)``) served by
+    its stdlib server (``miniasgi.serve_async``, 127.0.0.1, port 0), with
+    the service's codec swapped for ``raw_codec`` (the card's machine has no
+    cv2). Over TCP: the static routes and ``/gettip`` once; for each
+    species ``reps`` ``/getframe`` requests on one kept-alive connection and
+    ``reps`` frames over one ``/ws`` socket, masked as a browser masks them;
+    in process through ``socketio.ASGIApp``: ``sio_shape`` = (clients,
+    frames each), all sent before any answer is read, after a bad frame.
+    Hard checks: every returned frame equals ``visualize`` on the card bit
+    for bit; each route's run (counters set to 0 before, read after)
+    launched the species' kernel as many times as ``visualize`` does for
+    that many frames (once per frame for the non-UV species); every
+    Socket.IO frame is answered once, to its own client, in its order; the
+    bad frame gets an ``error`` event and the loop goes on. Measured, per
+    species and route, on the host clock (each request ends with the
+    response read, after ``visualize`` synchronized): ms per request
+    (median, p90), beside ``visualize`` alone on the same frames; once, the
+    host's codec work for one frame (JSON and base64 each way) and the
+    stdlib server's read of one masked ``/ws`` frame."""
+    from animal_vision_tpu_torch.server import miniasgi
+    from animal_vision_tpu_torch.server.app import MANIFEST_JSON, _ui_asset, build_asgi_app, ui_page
+    from animal_vision_tpu_torch.species import NON_UV_NAMES, animal_names, get_animal
+
+    on_card = device.type == "cuda"
+    clients, per_client = sio_shape
+    rng = np.random.default_rng(SEED + 9)
+    pool = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(max(reps, clients * per_client))]
+    uris = [raw_uri(f) for f in pool]
+    log(f"[serve] codec: raw uint8 frames as data:{SERVE_RAW_MIME};shape=HxWx3;base64 (chip_smoke.raw_codec in "
+        f"place of the service's cv2 codec); not run on the card: "
+        + "; ".join(f"{route} ({why})" for route, why in SERVE_NOT_ON_CARD.items()))
+
+    body = json.dumps({"image": uris[0], "animal": "dog"})
+    payload = uris[0].split(",", 1)[1]
+    codec = {}
+    for what, fn in (("json_loads", lambda: json.loads(body)), ("b64decode", lambda: base64.b64decode(payload)),
+                     ("b64encode", lambda: raw_uri(pool[0])), ("json_dumps", lambda: json.dumps({"image": uris[0]}))):
+        codec[what] = wall_ms(fn, 5)["median"]
+
+    async def unmask_ms() -> float:
+        reader = asyncio.StreamReader()
+        reader.feed_data(masked_frame(0x1, body.encode()))
+        t0 = time.perf_counter()
+        _, _, data = await miniasgi._ws_read_frame(reader)
+        ms = (time.perf_counter() - t0) * 1e3
+        if data != body.encode():
+            raise AssertionError("the stdlib server's read of a masked frame differs from the payload")
+        return ms
+
+    def counted(name: str, n_frames: int, per_frame: dict, moved: dict, route: str) -> None:
+        want = {k: v * n_frames for k, v in per_frame.items()}
+        if on_card and moved != want:
+            raise AssertionError(f"{name} {route}: launches {moved} over {n_frames} requests, expected {want}")
+
+    def check(name: str, route: str, i: int, uri: str, want: np.ndarray, want_uri: str) -> None:
+        if uri != want_uri:
+            got = raw_frame(uri)
+            err = max_lsb(torch.from_numpy(got), torch.from_numpy(want)) if got.shape == want.shape else got.shape
+            raise AssertionError(f"{name} {route}: frame {i} differs from visualize ({err})")
+
+    async def static_routes(port: int) -> dict:
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        try:
+            want = {"/": json.dumps("animal-vision-tpu server").encode(), "/ui": ui_page().encode(),
+                    "/manifest.webmanifest": MANIFEST_JSON.encode(), "/sw.js": _ui_asset("sw.js").encode(),
+                    "/ui/app.js": _ui_asset("app.js").encode(), "/ui/app.css": _ui_asset("app.css").encode()}
+            sizes = {}
+            for path, content in want.items():
+                status, got = await http_exchange(reader, writer, "GET", path)
+                if status != 200 or got != content:
+                    raise AssertionError(f"GET {path}: {status}, {len(got)} bytes, expected {len(content)}")
+                sizes[path] = len(got)
+            page = want["/ui"].decode()
+            data = json.loads(page.split("<script>const DATA = ", 1)[1].split(";</script>", 1)[0])
+            if data["animals"] != animal_names() or len(data["animals"]) != 36:
+                raise AssertionError(f"/ui lists {len(data['animals'])} species")
+            status, got = await http_exchange(reader, writer, "POST", "/gettip", b'{"animal": "dog"}')
+            if status != 200 or json.loads(got) != {"tip": ""}:
+                raise AssertionError(f"/gettip: {status} {got[:200]}")
+            return sizes
+        finally:
+            writer.close()
+
+    async def getframe(port: int, name: str, bodies: list, wants: list, want_uris: list) -> list[float]:
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        samples, replies = [], []
+        try:
+            for i in range(reps):
+                t0 = time.perf_counter()
+                status, got = await http_exchange(reader, writer, "POST", "/getframe", bodies[i])
+                samples.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"{name} /getframe: {status} {got[:200]}")
+                replies.append(got)
+        finally:
+            writer.close()
+        for i, got in enumerate(replies):
+            check(name, "/getframe", i, json.loads(got)["image"], wants[i], want_uris[i])
+        return samples
+
+    async def ws(port: int, name: str, bodies: list, wants: list, want_uris: list) -> list[float]:
+        reader, writer = await ws_upgrade(port, "/ws")
+        samples, replies = [], []
+        try:
+            for i in range(reps):
+                msg = masked_frame(0x1, bodies[i])
+                t0 = time.perf_counter()
+                writer.write(msg)
+                await writer.drain()
+                op, got = await asyncio.wait_for(read_ws_frame(reader), SERVE_TIMEOUT_S)
+                samples.append((time.perf_counter() - t0) * 1e3)
+                if op != 0x1:
+                    raise AssertionError(f"{name} /ws: opcode {op}")
+                replies.append(got)
+            writer.write(masked_frame(0x8, (1000).to_bytes(2, "big")))
+            await writer.drain()
+        finally:
+            writer.close()
+        for i, got in enumerate(replies):
+            check(name, "/ws", i, json.loads(got)["image"], wants[i], want_uris[i])
+        return samples
+
+    async def socketio(app, name: str, wants: list, want_uris: list) -> tuple[list[float], float]:
+        cs = [SioClient(app) for _ in range(clients)]
+        for c in cs:
+            await c.connect()
+        await cs[0].send(base64.b64encode(b"not a frame").decode(), name)
+        t_bad, (event, data) = await cs[0].event()
+        if event != "error" or "decode" not in data.get("error", ""):
+            raise AssertionError(f"{name} Socket.IO: a bad frame got {event} {data}")
+        sent = {}
+        t0 = time.perf_counter()
+        for i in range(per_client):
+            for k, c in enumerate(cs):
+                sent[k, i] = await c.send(uris[k * per_client + i], name)
+        samples, last = [], t0
+        for k, c in enumerate(cs):
+            for i in range(per_client):
+                t, (event, data) = await c.event()
+                if event != "getimage":
+                    raise AssertionError(f"{name} Socket.IO: client {k} frame {i} got {event} {data}")
+                j = k * per_client + i
+                check(name, f"Socket.IO client {k}", i, data["image"], wants[j], want_uris[j])
+                samples.append((t - sent[k, i]) * 1e3)
+                last = max(last, t)
+        wall = last - t0
+        await asyncio.sleep(0.05)
+        extra = [c.events.qsize() for c in cs]
+        if any(extra):
+            raise AssertionError(f"{name} Socket.IO: events beyond one per frame: {extra}")
+        for c in cs:
+            await c.close()
+        return samples, wall
+
+    async def run(app) -> dict:
+        server = await miniasgi.serve_async(app, "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        rows = {}
+        try:
+            sizes = await static_routes(port)
+            ws_read = await unmask_ms()
+            for name in names:
+                animal = get_animal(name, device)
+                animal.visualize(pool[0])  # builds and loads the species' program
+                reset_counters()
+                wants = [animal.visualize(f)[1] for f in pool]
+                want_uris = [raw_uri(w) for w in wants]
+                bodies = [json.dumps({"image": uris[i], "animal": name}).encode() for i in range(reps)]
+                per_frame = {k: v // len(pool) for k, v in counters().items() if v}
+                kernel = expected_kernel(name) if name in NON_UV_NAMES else "blur_uv"
+                if on_card and (set(per_frame) != {kernel} or (kernel != "blur_uv" and per_frame[kernel] != 1)
+                                or any(v % len(pool) for v in counters().values())):
+                    raise AssertionError(f"{name}: visualize of {len(pool)} frames launched {counters()}")
+                vis = wall_ms(lambda: animal.visualize(pool[0]), reps, warmup=False)
+                routes = {}
+                for route, drive in (("/getframe", lambda: getframe(port, name, bodies, wants, want_uris)),
+                                     ("/ws", lambda: ws(port, name, bodies, wants, want_uris))):
+                    reset_counters()
+                    samples = await drive()
+                    counted(name, reps, per_frame, {k: v for k, v in counters().items() if v}, route)
+                    routes[route] = ms_stats(samples)
+                reset_counters()
+                samples, wall = await socketio(app, name, wants, want_uris)
+                counted(name, clients * per_client, per_frame, {k: v for k, v in counters().items() if v},
+                        "Socket.IO")
+                routes["socketio"] = dict(ms_stats(samples), wall_ms=wall * 1e3,
+                                          ms_per_frame=wall * 1e3 / (clients * per_client))
+                rows[name] = dict(kernel=kernel, launches_per_frame=per_frame, visualize_ms=vis, routes=routes)
+                log(f"[serve] {name:<8} {hw[0]}x{hw[1]}: visualize {vis['median']:.2f} ms (p90 {vis['p90']:.2f}); "
+                    + "; ".join(f"{r} {v['median']:.2f} ms (p90 {v['p90']:.2f}, n={v['n']}, "
+                                f"{v['median'] / vis['median']:.1f}x visualize)" for r, v in routes.items())
+                    + f"; Socket.IO {clients}x{per_client} frames in {wall * 1e3:.1f} ms "
+                    f"({routes['socketio']['ms_per_frame']:.2f} ms per frame); bit-equal to visualize; "
+                    f"{kernel} x{per_frame.get(kernel, 0)} per request")
+        finally:
+            server.close()
+            await asyncio.wait_for(server.wait_closed(), SERVE_TIMEOUT_S)
+        return dict(species=rows, static_bytes=sizes, ws_read_ms=ws_read)
+
+    saved_key = os.environ.pop("GEMINI_API_KEY", None)
+    try:
+        with plain_forbidden_on_cuda(), raw_codec(hw):
+            out = asyncio.run(run(build_asgi_app(device)))
+    finally:
+        if saved_key is not None:
+            os.environ["GEMINI_API_KEY"] = saved_key
+    log(f"[serve] host work per {hw[0]}x{hw[1]} frame: " + ", ".join(f"{k} {v:.2f} ms" for k, v in codec.items())
+        + f"; the stdlib server's read of one masked /ws frame ({len(body)} bytes): {out['ws_read_ms']:.1f} ms")
+    return dict(out, hw=list(hw), reps=reps, socketio=dict(clients=clients, frames_each=per_client),
+                codec=f"data:{SERVE_RAW_MIME};shape=HxWx3;base64", host_codec_ms=codec,
+                not_on_card=SERVE_NOT_ON_CARD)
+
 def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], ffn_rows: list[dict],
             launches: dict, ablation: dict, gelu_probe: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
@@ -2191,6 +2584,8 @@ def main() -> int:
     no_rungs("zoo")
     stream_run = stream_phase(device, {**main_run["species"], **uv_run["species"]})
     no_rungs("stream")
+    serve_run = serve_phase(device)
+    no_rungs("serve")
     library_run = library_phase(device)
     no_rungs("library")
     profile_run = profile_phase(device)
@@ -2215,7 +2610,7 @@ def main() -> int:
                                       mst_cases=mst_rows, ffn_cases=ffn_rows, main_path=main_run,
                                       uv_main_path=uv_run, mst_main_path=mst_run, mst_l_main_path=mst_l_run,
                                       gelu_probe=gelu_probe, zoo=zoo_run,
-                                      stream=stream_run, library=library_run, profile=profile_run,
+                                      stream=stream_run, serve=serve_run, library=library_run, profile=profile_run,
                                       degrade=degrade_run,
                                       kernels=kernels["kernels"], seconds=time.perf_counter() - t0), indent=1))
     log(f"[done] {time.perf_counter() - t0:.1f} s")

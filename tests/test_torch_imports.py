@@ -62,7 +62,8 @@ def test_port_imports_no_jax_package_or_cv2():
         "utils.timing", "utils.profiling", "native.ring", "io.renderer", "io.image", "io.video", "io.webcam",
         "io.gallery", "pipeline.executor", "service", "cli", "ops.gelu_probe", "models.common", "models.metrics",
         "models.simple_nets", "models.hinet", "models.mprnet", "models.restormer", "models.mirnet", "models.hdnet",
-        "models.sgn", "models.awan", "models.tiling", "models.ensemble", "models.summary")}
+        "models.sgn", "models.awan", "models.tiling", "models.ensemble", "models.summary", "server",
+        "server.app", "server.miniasgi", "server.miniosio")}
     assert expected <= set(report["modules"])
 
 

@@ -869,3 +869,36 @@ def test_zoo_model_on_card_vs_cpu(cuda, method):
         got = zoo.model_generator(method, device=cuda, seed=5)(x.to(cuda)).cpu()
     assert got.shape == want.shape == (2, 37, 53, 31)
     assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("name", ["dog", "deer", "rat", "cat", "kestrel"])
+def test_getframe_on_card_is_visualize(cuda, no_plain_on_cuda, name):
+    """``POST /getframe`` through the port's ASGI app on the card, with the
+    raw codec of ``chip_smoke.py`` in place of cv2: the frame ``visualize``
+    gives on the card, bit for bit, and the species' kernel launched."""
+    import asyncio
+    import json
+
+    import chip_smoke
+    from animal_vision_tpu_torch.server.app import build_asgi_app
+
+    frame = _frames((1, 72, 130), "cpu", seed=6)[0].numpy()
+    sent = []
+
+    async def receive():
+        body = json.dumps({"image": chip_smoke.raw_uri(frame), "animal": name}).encode()
+        return {"type": "http.request", "body": body, "more_body": False}
+
+    async def send(msg):
+        sent.append(msg)
+
+    scope = {"type": "http", "method": "POST", "path": "/getframe", "query_string": b"", "headers": []}
+    with chip_smoke.raw_codec(frame.shape[:2]):
+        chip_smoke.reset_counters()
+        asyncio.run(build_asgi_app(cuda)(scope, receive, send))
+        moved = {k: v for k, v in chip_smoke.counters().items() if v}
+    assert sent[0]["status"] == 200
+    got = chip_smoke.raw_frame(json.loads(sent[1]["body"])["image"])
+    np.testing.assert_array_equal(got, get_animal(name, cuda).visualize(frame)[1])
+    kernel = "blur_uv" if name == "kestrel" else chip_smoke.expected_kernel(name)
+    assert set(moved) == {kernel} and (kernel == "blur_uv" or moved[kernel] == 1)
