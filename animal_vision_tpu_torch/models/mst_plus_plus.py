@@ -1,10 +1,11 @@
-"""MST++ inference: RGB -> 31-band hyperspectral reconstruction.
+"""MST++: RGB -> 31-band hyperspectral reconstruction.
 
 Counterpart of ``animal_vision_tpu/models/mst_plus_plus.py`` for the
-published configuration: 3 stages, n_feat 31, ``num_blocks`` (1, 1, 1),
-1.62 M parameters, spectral attention with heads of 31 channels (1, 2 and 4
-heads at the levels of 31, 62 and 124 channels). Frames are NHWC
-(N, H, W, C) float32, like the JAX module.
+published configuration: 3 stages (``MSTPlusPlus(stage=...)`` counts the
+cascaded stages, as the JAX ``stage`` does), n_feat 31, ``num_blocks``
+(1, 1, 1), 1.62 M parameters at 3 stages, spectral attention with heads
+of 31 channels (1, 2 and 4 heads at the levels of 31, 62 and 124
+channels). Frames are NHWC (N, H, W, C) float32, like the JAX module.
 
 State layout: the reference ``MST_Plus_Plus.py`` names and tensor shapes
 (what the JAX ``convert_torch_state`` reads), with one exception: each
@@ -15,11 +16,22 @@ is (half,), loads by broadcasting. ``from_jax_params`` carries a JAX param
 tree across exactly; ``load_shipped`` gives the model with the shipped
 ``synth_v1`` weights.
 
-The modules only hold the parameters. ``MSTPlusPlus.forward`` reads them
-once per device into the kernels' layouts and composes the four functions
-of ``ops/fused_msab.py``: on CUDA their kernels (per MSAB block one stats
-launch, the plain-PyTorch glue, one apply launch), on the CPU or with
-``plain=True`` their plain versions.
+The modules only hold the parameters. ``MSTPlusPlus.forward`` composes
+the four functions of ``ops/fused_msab.py``: on CUDA their kernels (per
+MSAB block one stats launch, the plain-PyTorch glue, one apply launch), on
+the CPU or with ``plain=True`` their plain versions. Two paths read the
+parameters:
+
+- for inference, the kernels' layouts, made once per device and again
+  whenever a parameter's version counter or storage changed (an optimizer
+  step, an in-place edit, ``load_state_dict``), outside autograd;
+- whenever grad is enabled and a parameter requires grad, and while
+  ``torch.export`` traces the forward, the plain versions on the live
+  parameters, through which gradients flow. The CUDA kernels have no
+  backward (nor do the JAX package's Pallas kernels: its trainer runs
+  none, ``models/train.py:44-47``), and a trace cannot follow their
+  launches, so a kernel forward on the card under grad or while traced
+  raises instead of giving way to the plain versions.
 """
 
 from __future__ import annotations
@@ -82,18 +94,19 @@ class MSAB(nn.Module):
             nn.ModuleList([MSMSA(dim, dim_head, heads), PreNorm(dim)]) for _ in range(num_blocks)
         )
 
-    def weights(self) -> list[MsabWeights]:
+    def weights(self, live: bool = False) -> list[MsabWeights]:
         out = []
         for attn, pre in self.blocks:
             ff = pre.fn.net
             out.append(MsabWeights(
                 heads=attn.heads,
-                wq=_dense(attn.to_q.weight), wk=_dense(attn.to_k.weight), wv=_dense(attn.to_v.weight),
-                rescale=_t(attn.rescale.reshape(-1)),
-                wproj=_dense(attn.proj.weight), bproj=_t(attn.proj.bias),
-                pos0=_depthwise(attn.pos_emb[0].weight), pos2=_depthwise(attn.pos_emb[2].weight),
-                ln_w=_t(pre.norm.weight), ln_b=_t(pre.norm.bias),
-                w0=_dense(ff[0].weight[:, :, 0, 0]), dw=_depthwise(ff[2].weight), w4=_dense(ff[4].weight[:, :, 0, 0]),
+                wq=_dense(attn.to_q.weight, live), wk=_dense(attn.to_k.weight, live),
+                wv=_dense(attn.to_v.weight, live), rescale=_t(attn.rescale.reshape(-1), live),
+                wproj=_dense(attn.proj.weight, live), bproj=_t(attn.proj.bias, live),
+                pos0=_depthwise(attn.pos_emb[0].weight, live), pos2=_depthwise(attn.pos_emb[2].weight, live),
+                ln_w=_t(pre.norm.weight, live), ln_b=_t(pre.norm.bias, live),
+                w0=_dense(ff[0].weight[:, :, 0, 0], live), dw=_depthwise(ff[2].weight, live),
+                w4=_dense(ff[4].weight[:, :, 0, 0], live),
             ))
         return out
 
@@ -142,38 +155,43 @@ class MST(nn.Module):
             dim_stage //= 2
         self.mapping = nn.Conv2d(dim, dim, 3, 1, 1, bias=False)
 
-    def weights(self) -> dict:
+    def weights(self, live: bool = False) -> dict:
+        """The stage's weights in the kernels' layouts; with ``live`` the
+        decoder levels keep only the raw up-fuse weights (``up_fuse_raw``),
+        which the plain version reads."""
+        up_fuse = K.up_fuse_raw if live else K.up_fuse_weights
         return {
-            "embedding": _conv(self.embedding.weight),
-            "enc": [(msab.weights(), _conv(down.weight)) for msab, down in self.encoder_layers],
-            "bottleneck": self.bottleneck.weights(),
+            "embedding": _conv(self.embedding.weight, live),
+            "enc": [(msab.weights(live), _conv(down.weight, live)) for msab, down in self.encoder_layers],
+            "bottleneck": self.bottleneck.weights(live),
             "dec": [
-                (K.up_fuse_weights(_t(up.weight.permute(0, 2, 3, 1)), _t(up.bias.permute(1, 2, 0)),
-                                   _dense(fuse.weight[:, :, 0, 0])), msab.weights())
+                (up_fuse(_t(up.weight.permute(0, 2, 3, 1), live), _t(up.bias.permute(1, 2, 0), live),
+                         _dense(fuse.weight[:, :, 0, 0], live)), msab.weights(live))
                 for up, fuse, msab in self.decoder_layers
             ],
-            "mapping": _conv(self.mapping.weight),
+            "mapping": _conv(self.mapping.weight, live),
         }
 
 
-def _t(p: torch.Tensor) -> torch.Tensor:
-    """A parameter's values as a contiguous tensor outside autograd."""
-    return p.detach().contiguous()
+def _t(p: torch.Tensor, live: bool = False) -> torch.Tensor:
+    """A parameter's values as a contiguous tensor: outside autograd, or,
+    with ``live``, a function of the parameter that gradients flow through."""
+    return (p if live else p.detach()).contiguous()
 
 
-def _conv(w: torch.Tensor) -> torch.Tensor:
+def _conv(w: torch.Tensor, live: bool = False) -> torch.Tensor:
     """(out, in, K, K) -> (K, K, in, out)."""
-    return _t(w.permute(2, 3, 1, 0))
+    return _t(w.permute(2, 3, 1, 0), live)
 
 
-def _dense(w: torch.Tensor) -> torch.Tensor:
+def _dense(w: torch.Tensor, live: bool = False) -> torch.Tensor:
     """(out, in) -> (in, out)."""
-    return _t(w.t())
+    return _t(w.t(), live)
 
 
-def _depthwise(w: torch.Tensor) -> torch.Tensor:
+def _depthwise(w: torch.Tensor, live: bool = False) -> torch.Tensor:
     """(C, 1, 3, 3) -> (3, 3, C)."""
-    return _t(w[:, 0].permute(1, 2, 0))
+    return _t(w[:, 0].permute(1, 2, 0), live)
 
 
 def _msab(x: torch.Tensor, blocks: list[MsabWeights], plain: bool) -> torch.Tensor:
@@ -211,47 +229,75 @@ def _reflect_index(n: int, total: int, device: torch.device) -> torch.Tensor:
     return torch.where(m < n, m, period - m)
 
 
-class MSTPlusPlus(nn.Module):
-    """3 cascaded MST stages between ``conv_in`` (3 -> 31) and ``conv_out``
-    (31 -> 31) with a global residual. ``forward`` takes (N, H, W, 3)
-    float32 frames on the model's device and returns (N, H, W, 31): the
-    frame is reflect-padded to multiples of 8, run, and cropped."""
+class _LayoutCache:
+    """The kernels' weight layouts per device, each with the stamp of the
+    parameters it was made from. An object, not a dict attribute of the
+    module: ``torch.export`` replaces those with copies of fake tensors."""
 
     def __init__(self):
+        self.layouts: dict = {}
+
+
+class MSTPlusPlus(nn.Module):
+    """``stage`` cascaded MST stages (3 in the published model) between
+    ``conv_in`` (3 -> 31) and ``conv_out`` (31 -> 31) with a global
+    residual. ``forward`` takes (N, H, W, 3) float32 frames on the model's
+    device and returns (N, H, W, 31): the frame is reflect-padded to
+    multiples of 8, run, and cropped."""
+
+    def __init__(self, stage: int = 3):
         super().__init__()
+        self.stage = stage
         self.conv_in = nn.Conv2d(3, 31, 3, 1, 1, bias=False)
-        self.body = nn.Sequential(*[MST() for _ in range(3)])
+        self.body = nn.Sequential(*[MST() for _ in range(stage)])
         self.conv_out = nn.Conv2d(31, 31, 3, 1, 1, bias=False)
-        self._prepared: dict = {}
+        self._cache = _LayoutCache()
 
     def _apply(self, fn, *args, **kwargs):
-        self._prepared = {}
+        self._cache.layouts = {}
         return super()._apply(fn, *args, **kwargs)
 
-    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
-        self._prepared = {}
-        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+    def _layouts(self, live: bool) -> dict:
+        return {
+            "conv_in": _conv(self.conv_in.weight, live),
+            "conv_out": _conv(self.conv_out.weight, live),
+            "stages": [st.weights(live) for st in self.body],
+        }
 
     def weights(self, device: torch.device) -> dict:
-        """The parameters in the kernels' layouts, made once per device
-        (again after ``load_state_dict`` or a move)."""
+        """The parameters in the kernels' layouts, outside autograd: made
+        once per device, and again when a parameter's storage or version
+        counter moved (an optimizer step, an in-place edit,
+        ``load_state_dict``)."""
         key = str(device)
-        if key not in self._prepared:
-            self._prepared[key] = {
-                "conv_in": _conv(self.conv_in.weight),
-                "conv_out": _conv(self.conv_out.weight),
-                "stages": [st.weights() for st in self.body],
-            }
-        return self._prepared[key]
+        stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        cached = self._cache.layouts.get(key)
+        if cached is None or cached[0] != stamp:
+            with torch.no_grad():
+                cached = (stamp, self._layouts(live=False))
+            self._cache.layouts[key] = cached
+        return cached[1]
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """(N, H, W, 3) -> (N, H, W, 31). ``plain`` composes the kernels'
-        plain versions on any device (the CPU always does)."""
+        plain versions on any device (the CPU always does). Under grad, with
+        a parameter that requires it, and while ``torch.export`` traces the
+        forward, the plain versions run on the live parameters; on the card
+        that needs ``plain=True``, since the kernels have no backward and a
+        trace cannot follow their launches."""
         if x.dim() != 4 or x.shape[-1] != 3:
             raise ValueError(f"MSTPlusPlus takes (N, H, W, 3) frames, got {tuple(x.shape)}")
         if x.device != self.conv_in.weight.device:
             raise ValueError(f"frames on {x.device}, model on {self.conv_in.weight.device}")
-        p = self.weights(x.device)
+        tracing = torch.compiler.is_compiling()
+        grad = torch.is_grad_enabled() and any(q.requires_grad for q in self.parameters())
+        live = grad or tracing
+        if live and x.is_cuda and not plain:
+            raise RuntimeError("MSTPlusPlus: the CUDA kernels have no backward and cannot be traced; train or "
+                               "export with forward(x, plain=True), or run inference under torch.no_grad() "
+                               "or after requires_grad_(False)")
+        plain = plain or live
+        p = self._layouts(live=True) if live else self.weights(x.device)
         n, h, w, _ = x.shape
         hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
         x = x.to(torch.float32)

@@ -34,6 +34,7 @@ from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus, UpConv
 from animal_vision_tpu_torch.models.restormer import Restormer
 from animal_vision_tpu_torch.models.sgn import SGN
 from animal_vision_tpu_torch.models.simple_nets import EDSR, HSCNNPlus
+from animal_vision_tpu_torch.species import resolve_device
 
 _REGISTRY = {
     "mst_plus_plus": MSTPlusPlus,
@@ -119,9 +120,7 @@ def model_generator(method: str, pretrained_model_path=None, device: str | torch
     ``torch.Generator().manual_seed(seed)``."""
     if method not in _REGISTRY:
         raise ValueError(f"unknown method {method!r}; available: {available_models()}")
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    device = resolve_device(device)
     model = _REGISTRY[method]()
     if pretrained_model_path:
         ckpt = torch.load(pretrained_model_path, map_location="cpu", weights_only=True)

@@ -111,15 +111,16 @@ class MsabWeights(NamedTuple):
 
 class UpFuseWeights(NamedTuple):
     """One decoder level's weights (C channels in, C/2 out): the raw ones,
-    which the plain version reads, and the composed ones the kernel reads."""
+    which the plain version reads, and the composed ones the kernel reads
+    (None in ``up_fuse_raw``'s, which only the plain version takes)."""
 
     wup: torch.Tensor  # (C, 2, 2, C/2), the transposed convolution
     bup: torch.Tensor  # (2, 2, C/2), its bias per (dy, dx, out)
     fuse: torch.Tensor  # (C, C/2), the 1x1 fuse over [up | skip]
-    wc: torch.Tensor  # (2, 2, C, C/2): wup[:, dy, dx] fuse[:C/2]
-    bc: torch.Tensor  # (2, 2, C/2): bup[dy, dx] fuse[:C/2]
-    wskip: torch.Tensor  # (C/2, C/2): fuse[C/2:]
-    packed: torch.Tensor  # (4 CF + HP, NP): wc and wskip as the kernel reads them (``_pack_up``)
+    wc: torch.Tensor | None  # (2, 2, C, C/2): wup[:, dy, dx] fuse[:C/2]
+    bc: torch.Tensor | None  # (2, 2, C/2): bup[dy, dx] fuse[:C/2]
+    wskip: torch.Tensor | None  # (C/2, C/2): fuse[C/2:]
+    packed: torch.Tensor | None  # (4 CF + HP, NP): wc and wskip as the kernel reads them (``_pack_up``)
 
 
 def _up_dims(c: int) -> tuple[int, int, int]:
@@ -158,6 +159,13 @@ def up_fuse_weights(wup: torch.Tensor, bup: torch.Tensor, fuse: torch.Tensor) ->
     bc = torch.matmul(bup.double(), f_up).float().contiguous()
     wskip = fuse[half:].contiguous()
     return UpFuseWeights(wup.contiguous(), bup.contiguous(), fuse.contiguous(), wc, bc, wskip, _pack_up(wc, wskip))
+
+
+def up_fuse_raw(wup: torch.Tensor, bup: torch.Tensor, fuse: torch.Tensor) -> UpFuseWeights:
+    """The decoder level's raw weights alone, for ``up_fuse_plain``: nothing
+    is composed or copied, so gradients flow to the tensors given (the
+    differentiable forward of ``models/mst_plus_plus.py``)."""
+    return UpFuseWeights(wup, bup, fuse, None, None, None, None)
 
 
 def reset_launches() -> None:
@@ -280,7 +288,7 @@ def up_fuse_plain(fea: torch.Tensor, skip: torch.Tensor, uw: UpFuseWeights) -> t
     """Plain version of ``up_fuse``, from the raw weights: the 1x1 map to
     (dy, dx, out) channels plus the bias, depth-to-space, then the 1x1 fuse
     of [up | skip] (two products, not the kernel's composed one)."""
-    _check_up(fea, skip, uw)
+    _check_up(fea, skip, uw, composed=False)
     n, h, w, c = fea.shape
     half = c // 2
     up = linalg.frame_matmul(fea, uw.wup.reshape(c, 4 * half)) + uw.bup.reshape(4 * half)
@@ -507,16 +515,19 @@ def msab_apply(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tens
     return fused_mst.ffn(msab_pos(x, m, blk), blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
 
 
-def _check_up(fea, skip, uw: UpFuseWeights) -> None:
+def _check_up(fea, skip, uw: UpFuseWeights, composed: bool = True) -> None:
+    """Shapes and devices of an up-fuse call: the raw weights always, the
+    composed ones where ``composed`` (the kernel reads only those)."""
     _frames(fea, "up_fuse", (62, 124))
     n, h, w, c = fea.shape
     half = c // 2
     cf, hp, np_ = _up_dims(c)
-    shapes = tuple(tuple(t.shape) for t in uw)
-    if tuple(skip.shape) != (n, 2 * h, 2 * w, half) or shapes != (
-            (c, 2, 2, half), (2, 2, half), (c, half), (2, 2, c, half), (2, 2, half), (half, half), (4 * cf + hp, np_)):
+    want = ((c, 2, 2, half), (2, 2, half), (c, half), (2, 2, c, half), (2, 2, half), (half, half), (4 * cf + hp, np_))
+    used = len(uw) if composed else 3
+    shapes = tuple(None if t is None else tuple(t.shape) for t in uw[:used])
+    if tuple(skip.shape) != (n, 2 * h, 2 * w, half) or shapes != want[:used]:
         raise ValueError(f"up_fuse: fea {tuple(fea.shape)}, skip {tuple(skip.shape)}, weights {shapes}")
-    _same_device(fea, "up_fuse", skip, *uw)
+    _same_device(fea, "up_fuse", skip, *uw[:used])
 
 
 def up_smem_bytes(c: int, tile: tuple[int, int]) -> int:

@@ -109,6 +109,17 @@ raises on failure:
    request (median, p90) beside ``visualize`` alone, the host's JSON and
    base64 work per frame and the stdlib server's read of one masked
    ``/ws`` frame;
+   then MST++ training and evaluation (``train_phase``): the published
+   model (seeded weights) for 20 Adam steps of 20 patches of 128x128 (the
+   plain versions under autograd; no kernel launched), ms per step, peak
+   memory, a profiled step's busy share and top kernels; a checkpoint at
+   step 10 resumed into fresh objects equal to the uninterrupted run bit
+   for bit; 3 steps on the card against the CPU; the trained model through
+   the kernels at 544x960 (launches of a forward, < 5e-4 from plain,
+   ``fused_vs_f32_psnr`` >= 40 dB, unlike the forward before training);
+   the eval protocol of the shipped weights
+   on in-memory scenes against the CPU (the ``.mat`` and ``.jpg`` I/O is
+   named as CPU-tested only); the convergence demo's JAX bars;
    then the library: the functions no species calls (band integrals,
    ``map_uv_purple_yellow``, the general Gaussian blurs, ``tapetum_bloom``,
    ``rod_vision``, ``unsharp_mask``, ``dog_bandpass``, ``remap_bilinear``,
@@ -154,6 +165,7 @@ import re
 import resource
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -297,6 +309,29 @@ SERVE_TIMEOUT_S = 120
 SERVE_NOT_ON_CARD = {
     "/getpic": "compose_split draws its labels with cv2.putText (io/renderer.py)",
     "/getgallery": "build_labeled_grid resizes and labels its tiles with cv2 (io/gallery.py)",
+}
+# train_phase: the published MST++ on the reference harness's crop and batch
+# (models/data.py's defaults), then the checks of models/train.py's slice
+TRAIN_STEPS = 20
+TRAIN_BATCH = 20
+TRAIN_PATCH = 128
+TRAIN_LR = 4e-4
+TRAIN_SCENES = (8, 256, 256)  # synthetic_scenes (n, h, w) the patches are cut from
+TRAIN_RESUME_AT = 10
+TRAIN_TIMED_FROM = 5  # steps 5..20 in the step-time median and p90
+TRAIN_CPU = (3, 2, 32)  # steps, batch, patch of the card-against-CPU run
+TRAIN_LOSS_REL = 1e-4
+TRAIN_RMS_OF_BOUND = 1e-4  # parameters: max within 2 x the rates' sum (Adam's sign flips), RMS within this of it
+TRAIN_FORWARD_HW = (544, 960)
+TRAIN_MIN_DB = 40.0
+TRAIN_EVAL_SCENES = (2, 288, 320)  # per family: synthetic_scenes and xgen_scenes
+TRAIN_EVAL_REL = 1e-4
+TRAIN_DEMO_STEPS = 40
+TRAIN_NOT_ON_CARD = {
+    "load_mat_cube, save_mat_cube": "h5py is not installed on the card's machine (models/eval.py)",
+    "load_rgb_minmax": "reads a .jpg with cv2 (models/eval.py)",
+    "eval_protocol_fixtures": "writes .jpg with cv2 and .mat with h5py (models/quality.py)",
+    "predict_image": "reads a .jpg with cv2 and writes a .mat with h5py (models/ensemble.py)",
 }
 REPORT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_report.json"
 
@@ -1342,10 +1377,13 @@ def mst_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MST_
             raise AssertionError(f"MST++ forward at {h}x{w}: shape {tuple(got.shape)}, {err} from the plain forward")
         forward = wall_ms(lambda: (model(x), sync(device)), reps)
         plain_forward = wall_ms(lambda: (model(x, plain=True), sync(device)), 1)
+        # the host's part of each forward's weight lookup: the version stamp of every parameter on a cache hit
+        lookup = wall_ms(lambda: model.weights(device), 200)
     log(f"[main] MST++ {h}x{w} forward: max {err:.3g} from the plain forward; median {forward['median']:.2f} ms "
-        f"(p90 {forward['p90']:.2f}), plain {plain_forward['median']:.1f} ms")
-    result = dict(forward_max_abs_err=err, forward_ms=forward, plain_forward_ms=plain_forward, launches=launches,
-                  per_forward=per_item, species={})
+        f"(p90 {forward['p90']:.2f}), plain {plain_forward['median']:.1f} ms; weight lookup "
+        f"{lookup['median'] * 1e3:.1f} us (p90 {lookup['p90'] * 1e3:.1f})")
+    result = dict(forward_max_abs_err=err, forward_ms=forward, plain_forward_ms=plain_forward,
+                  weights_lookup_ms=lookup, launches=launches, per_forward=per_item, species={})
 
     for name, animal in animals.items():
         base1, out1 = outputs[f"{name} visualize"]
@@ -2471,6 +2509,221 @@ def serve_phase(device: torch.device, names=STREAM_SPECIES, hw=MAIN_HW, reps=SER
                 codec=f"data:{SERVE_RAW_MIME};shape=HxWx3;base64", host_codec_ms=codec,
                 not_on_card=SERVE_NOT_ON_CARD)
 
+def train_phase(device: torch.device, steps=TRAIN_STEPS, batch=TRAIN_BATCH, patch=TRAIN_PATCH,
+                scenes_shape=TRAIN_SCENES, resume_at=TRAIN_RESUME_AT, cpu_run=TRAIN_CPU,
+                forward_hw=TRAIN_FORWARD_HW, eval_scenes=TRAIN_EVAL_SCENES, demo_steps=TRAIN_DEMO_STEPS) -> dict:
+    """MST++ training and evaluation (``models/train.py``, ``export.py``,
+    ``eval.py``, ``quality.py``) on the card, through the entry points a
+    user calls:
+
+    1. the published MST++ (3 stages, weights from a seeded generator) for
+       ``steps`` Adam steps (``make_optimizer(lr, steps, warmup=1)``, the
+       MRAE loss) on ``batch`` x ``patch``^2 patches cut by
+       ``sample_patches`` from ``synthetic_scenes``: every loss finite, the
+       last below the first, no kernel launched (the train forward is the
+       plain versions under autograd); ms per step (median and p90 of steps
+       ``TRAIN_TIMED_FROM``..``steps``, host clock ended by a synchronize),
+       the steps' peak memory, and from one more, profiled, step the
+       device's busy share and largest items;
+    2. a checkpoint at step ``resume_at`` restored into a fresh model,
+       optimizer and schedule, which then takes the same later steps: equal
+       to the uninterrupted run bit for bit;
+    3. ``cpu_run`` = (steps, batch, patch) of the same model from the same
+       weights and patches on the card and on the CPU: losses within
+       ``TRAIN_LOSS_REL``, parameters within Adam's bound;
+    4. the trained model under ``torch.no_grad()``: one ``forward_hw``
+       forward through the kernels with the launch counts of a forward, within
+       ``MST_FORWARD_TOL`` of the plain forward, ``fused_vs_f32_psnr`` at
+       least ``TRAIN_MIN_DB``, and unlike the same forward before training
+       (a stale weight cache would repeat it);
+    5. ``validate(..., crop=128)`` of the shipped weights through the
+       kernels over ``synthetic_scenes`` and ``xgen_scenes`` against the
+       port on the CPU (the card's machine has no cv2 or h5py, so the
+       in-memory scenes stand in for ``eval_protocol_fixtures``'s files);
+    6. ``convergence_demo(steps=demo_steps)`` on the card: the JAX bars."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from animal_vision_tpu_torch.models import eval as meval
+    from animal_vision_tpu_torch.models import export, quality, train
+    from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus
+    from animal_vision_tpu_torch.ops import fused_msab as M
+
+    cuda = device.type == "cuda"
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("train: TF32 must stay off (device_phase turns it off)")
+    log("[train] CPU-tested only (the card's machine lacks cv2 and h5py): "
+        + "; ".join(f"{k} ({why})" for k, why in TRAIN_NOT_ON_CARD.items()))
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    scenes = train.synthetic_scenes(*scenes_shape, seed=SEED, device=device)
+    draws = [train.sample_patches(rng, *scenes[int(rng.integers(0, len(scenes)))], patch, batch)
+             for _ in range(steps)]
+    batches = [(torch.from_numpy(r).to(device), torch.from_numpy(h).to(device)) for r, h in draws]
+    cfg = train.make_optimizer(lr=TRAIN_LR, total_steps=steps, warmup=1)
+    state = train.init_state(MSTPlusPlus(), cfg, seed=SEED, device=device)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step = train.make_train_step("mrae")
+    fh, fw = forward_hw
+    x = torch.from_numpy(rng.random((1, fh, fw, 3), dtype=np.float32)).to(device)
+    with torch.no_grad():
+        before = state.model(x)  # fills the weight cache with the initial weights
+
+    # 1 and 2: the uninterrupted run, with a checkpoint at resume_at
+    losses, step_ms = [], []
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    base_mem = torch.cuda.memory_allocated(device) if cuda else 0
+    reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "mid.pt")
+        for i, (rgb, hsi) in enumerate(batches, start=1):
+            t0 = time.perf_counter()
+            state, m = step(state, rgb, hsi)
+            sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+            if i == resume_at:
+                export.save_checkpoint(ckpt, state)
+        peak = (torch.cuda.max_memory_allocated(device) - base_mem) if cuda else 0
+        launched = {k: v for k, v in counters().items() if v}
+        fresh = MSTPlusPlus().to(device)
+        resumed = export.load_checkpoint(ckpt, train.TrainState(fresh, *cfg.build(fresh.parameters())))
+    if launched:
+        raise AssertionError(f"train: the train steps launched kernels {launched}; they run the plain versions")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: losses {losses} not finite or not lower at step {steps} than at step 1")
+    resumed_losses = []
+    for rgb, hsi in batches[resume_at:]:
+        resumed, m = step(resumed, rgb, hsi)
+        resumed_losses.append(m["loss"].item())
+    sd, rsd = state.model.state_dict(), resumed.model.state_dict()
+    resume_equal = resumed.step == state.step == steps and resumed_losses == losses[resume_at:] and all(
+        torch.equal(rsd[k], v) for k, v in sd.items())
+    if not resume_equal:
+        raise AssertionError(f"train: resumed at step {resume_at}, losses {resumed_losses} against "
+                             f"{losses[resume_at:]}; parameters max "
+                             f"{max((rsd[k] - v).abs().max().item() for k, v in sd.items()):.3g} apart")
+    del resumed, fresh
+    timed = step_ms[TRAIN_TIMED_FROM - 1:]
+    step_stats = ms_stats(timed)
+
+    # one more step, profiled: busy share and the largest device items
+    rgb, hsi = batches[-1]
+    with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        t0 = time.perf_counter()
+        step(state, rgb, hsi)
+        sync(device)
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    events = trace_device_events(prof)
+    busy = busy_us(events)
+    top = top_kernels(events, 8)
+    log(f"[train] MST++ ({n_params} parameters) {steps} steps of {batch}x{patch}x{patch}: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {step_stats['median']:.1f} ms per step (p90 {step_stats['p90']:.1f}, steps "
+        f"{TRAIN_TIMED_FROM}-{steps}), peak {peak / 2 ** 30:.2f} GiB over the {base_mem / 2 ** 30:.2f} GiB before; "
+        f"resumed at {resume_at}: bit-equal; profiled step {prof_wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms ({busy / prof_wall_us:.1%}; {busy / 1e3 / step_stats['median']:.1%} of the median "
+        f"step); top: " + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top))
+    result = dict(params=n_params, steps=steps, batch=batch, patch=patch, lr=TRAIN_LR, losses=losses,
+                  step_ms=step_stats, step_ms_all=step_ms, peak_bytes=peak, base_bytes=base_mem,
+                  resume=dict(at=resume_at, bit_equal=resume_equal),
+                  profiled_step=dict(wall_us=prof_wall_us, busy_us=busy, busy_share=busy / prof_wall_us,
+                                     busy_share_of_median_step=busy / 1e3 / step_stats["median"], top_kernels=top))
+
+    # 3: card against CPU
+    n_cpu, b_cpu, p_cpu = cpu_run
+    small = [train.sample_patches(rng, *scenes[0], p_cpu, b_cpu) for _ in range(n_cpu)]
+    cpu_cfg = train.make_optimizer(lr=TRAIN_LR, total_steps=steps, warmup=1)
+    on_cpu = train.init_state(MSTPlusPlus(), cpu_cfg, seed=SEED + 1, device="cpu")
+    card_model = MSTPlusPlus().to(device)
+    card_model.load_state_dict(on_cpu.model.state_dict())
+    on_card = train.TrainState(card_model, *cpu_cfg.build(card_model.parameters()))
+    pairs = []
+    for r, h in small:
+        on_cpu, mc = step(on_cpu, r, h)
+        on_card, mg = step(on_card, r, h)
+        pairs.append((mg["loss"].item(), mc["loss"].item()))
+    worst = max(abs(a - b) / abs(b) for a, b in pairs)
+    # an element whose gradient is at noise level may take Adam's step the
+    # other way on the other device: the max within 2 x the rates' sum
+    want = dict(on_cpu.model.named_parameters())
+    diffs = torch.cat([(p.detach().cpu() - want[k].detach()).flatten() for k, p in on_card.model.named_parameters()])
+    bound = 2 * sum(cpu_cfg.schedule(c) for c in range(n_cpu))
+    params_cpu = dict(max_abs=diffs.abs().max().item(), rms=diffs.pow(2).mean().sqrt().item(), bound=bound)
+    if (worst > TRAIN_LOSS_REL or params_cpu["max_abs"] > bound
+            or params_cpu["rms"] > TRAIN_RMS_OF_BOUND * bound):
+        raise AssertionError(f"train: card against CPU losses {pairs} ({worst:.3g} relative), parameters "
+                             f"{params_cpu}")
+    log(f"[train] card against CPU, {n_cpu} steps of {b_cpu}x{p_cpu}x{p_cpu}: losses within {worst:.3g} relative; "
+        f"parameters {params_cpu['max_abs']:.3g} max, {params_cpu['rms']:.3g} RMS apart "
+        f"(bound {params_cpu['bound']:.3g})")
+    result["card_vs_cpu"] = dict(losses=pairs, max_rel=worst, params=params_cpu)
+    del on_cpu, on_card, card_model
+
+    # 4: the trained weights through the kernels
+    state.model.eval()
+    expected = {**MST_PER_FORWARD, **MST_FFN_PER_FORWARD}
+    with torch.no_grad():
+        with plain_forbidden_on_cuda():
+            reset_counters()
+            after = state.model(x)
+            sync(device)
+            moved = {k: v for k, v in counters().items() if k in expected}
+        plain = state.model(x, plain=True)
+    err = (after - plain).abs().max().item()
+    change = (after - before).abs().max().item()
+    db = quality.fused_vs_f32_psnr(state.model, forward_hw)
+    if cuda and moved != expected:
+        raise AssertionError(f"train: the trained model's forward launched {moved}, expected {expected}")
+    if not (torch.isfinite(after).all().item() and err < MST_FORWARD_TOL and db >= TRAIN_MIN_DB and change > 1e-3):
+        raise AssertionError(f"train: trained forward at {fh}x{fw}: {err:.3g} from plain, {db:.2f} dB, "
+                             f"{change:.3g} from the forward before training")
+    log(f"[train] trained weights through the kernels at {fh}x{fw}: launches {moved}; max {err:.3g} from the plain "
+        f"forward; fused_vs_f32_psnr {db:.2f} dB; max {change:.3g} from the same forward before training")
+    result["trained_forward"] = dict(hw=[fh, fw], launches=moved, max_abs_err=err, fused_vs_f32_psnr_db=db,
+                                     max_change_from_init=change)
+
+    del state, batches, before, after, plain
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 5: the eval protocol on in-memory scenes, the shipped weights through the kernels
+    n_eval, eh, ew = eval_scenes
+    card_net, cpu_net = quality.load_pretrained(device), quality.load_pretrained("cpu")
+    protocol = {}
+    for family, make in (("synthetic", train.synthetic_scenes), ("xgen", train.xgen_scenes)):
+        fam = make(n_eval, eh, ew, 7 if family == "synthetic" else 11, device="cpu")
+        with plain_forbidden_on_cuda():
+            reset_counters()
+            got = meval.validate(meval.model_apply_fn(card_net), fam, crop=128)
+            n_conv = counters()["conv_kernel"]
+        want = meval.validate(meval.model_apply_fn(cpu_net), fam, crop=128)
+        rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+        if (cuda and n_conv != n_eval * MST_PER_FORWARD["conv_kernel"]) or rel > TRAIN_EVAL_REL:
+            raise AssertionError(f"train: eval protocol on {family} scenes: card {got}, CPU {want} "
+                                 f"({rel:.3g} relative), {n_conv} conv launches")
+        protocol[family] = dict(card=got, cpu=want, max_rel=rel)
+        log(f"[train] eval protocol (crop 128, synth_v1 through the kernels) on {n_eval} {family} scenes of "
+            f"{eh}x{ew}: MRAE {got['mrae']:.4f} RMSE {got['rmse']:.4f} PSNR {got['psnr']:.2f} dB; "
+            f"{rel:.3g} relative from the CPU")
+    result["eval_protocol"] = protocol
+    del card_net, cpu_net
+
+    # 6: the convergence demo on the card
+    t0 = time.perf_counter()
+    demo = train.convergence_demo(steps=demo_steps, device=device)
+    gain = demo["psnr_final"] - demo["psnr_init"]
+    if not (demo["resumed_step"] == demo_steps and demo["loss_last"] < 0.5 * demo["loss_first"] and gain >= 6.0):
+        raise AssertionError(f"train: convergence demo {demo}")
+    log(f"[train] convergence_demo(steps={demo_steps}): loss {demo['loss_first']:.4f} -> {demo['loss_last']:.4f}, "
+        f"held-out PSNR {demo['psnr_init']:.2f} -> {demo['psnr_final']:.2f} dB (+{gain:.2f}), resumed step "
+        f"{demo['resumed_step']}; {time.perf_counter() - t0:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    result["convergence_demo"] = dict(demo, psnr_gain_db=gain, seconds=time.perf_counter() - t0)
+    result["seconds"] = time.perf_counter() - t_phase
+    result["not_on_card"] = TRAIN_NOT_ON_CARD
+    return result
+
+
 def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], ffn_rows: list[dict],
             launches: dict, ablation: dict, gelu_probe: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
@@ -2586,6 +2839,8 @@ def main() -> int:
     no_rungs("stream")
     serve_run = serve_phase(device)
     no_rungs("serve")
+    train_run = train_phase(device)
+    no_rungs("train")
     library_run = library_phase(device)
     no_rungs("library")
     profile_run = profile_phase(device)
@@ -2610,7 +2865,8 @@ def main() -> int:
                                       mst_cases=mst_rows, ffn_cases=ffn_rows, main_path=main_run,
                                       uv_main_path=uv_run, mst_main_path=mst_run, mst_l_main_path=mst_l_run,
                                       gelu_probe=gelu_probe, zoo=zoo_run,
-                                      stream=stream_run, serve=serve_run, library=library_run, profile=profile_run,
+                                      stream=stream_run, serve=serve_run, train=train_run, library=library_run,
+                                      profile=profile_run,
                                       degrade=degrade_run,
                                       kernels=kernels["kernels"], seconds=time.perf_counter() - t0), indent=1))
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -1,6 +1,8 @@
 """Import rules of the PyTorch port: no JAX, no JAX package, no OpenCV (the
-I/O modules import cv2 inside the functions that use it), and no work at
-import time: no kernel library and no frame ring is built or loaded."""
+I/O modules import cv2 inside the functions that use it), no h5py (the
+``.mat`` I/O imports it likewise), no optax or orbax (the port trains with
+``torch.optim`` and checkpoints with ``torch.save``), and no work at import
+time: no kernel library and no frame ring is built or loaded."""
 
 import json
 import os
@@ -24,6 +26,7 @@ bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
     or m == "animal_vision_tpu" or m.startswith("animal_vision_tpu.") or m == "cv2"
+    or m.split(".")[0] in ("h5py", "optax", "orbax")
 )
 from animal_vision_tpu_torch.native import ring
 from animal_vision_tpu_torch.ops import _build
@@ -63,7 +66,8 @@ def test_port_imports_no_jax_package_or_cv2():
         "io.gallery", "pipeline.executor", "service", "cli", "ops.gelu_probe", "models.common", "models.metrics",
         "models.simple_nets", "models.hinet", "models.mprnet", "models.restormer", "models.mirnet", "models.hdnet",
         "models.sgn", "models.awan", "models.tiling", "models.ensemble", "models.summary", "server",
-        "server.app", "server.miniasgi", "server.miniosio")}
+        "server.app", "server.miniasgi", "server.miniosio", "models.data", "models.eval", "models.train",
+        "models.export", "models.quality")}
     assert expected <= set(report["modules"])
 
 

@@ -902,3 +902,118 @@ def test_getframe_on_card_is_visualize(cuda, no_plain_on_cuda, name):
     np.testing.assert_array_equal(got, get_animal(name, cuda).visualize(frame)[1])
     kernel = "blur_uv" if name == "kestrel" else chip_smoke.expected_kernel(name)
     assert set(moved) == {kernel} and (kernel == "blur_uv" or moved[kernel] == 1)
+
+
+# --- MST++ training (models/train.py): the plain versions under autograd on the card ---
+
+
+def _train_pair(cuda, stage=1):
+    """A seeded model on the CPU and its copy on the card, each with its
+    optimizer and schedule (lr 2e-3, warmup 1), and one batch of patches."""
+    from animal_vision_tpu_torch.models import train
+    from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus
+
+    cfg = train.make_optimizer(lr=2e-3, total_steps=10, warmup=1)
+    cpu = train.init_state(MSTPlusPlus(stage=stage), cfg, seed=3, device="cpu")
+    model = MSTPlusPlus(stage=stage).to(cuda)
+    model.load_state_dict(cpu.model.state_dict())
+    card = train.TrainState(model, *cfg.build(model.parameters()))
+    scenes = train.synthetic_scenes(2, 64, 64, 0, device="cpu")
+    rng = np.random.default_rng(5)
+    return cpu, card, cfg, [train.sample_patches(rng, *scenes[i % 2], 32, 2) for i in range(2)]
+
+
+def test_kernel_forward_raises_under_grad(cuda):
+    """The CUDA kernels have no backward: ``forward(x)`` under grad with a
+    parameter that requires it raises on the card, and ``plain=True``
+    trains."""
+    cpu, card, _, _ = _train_pair(cuda)
+    x = torch.rand(1, 16, 16, 3, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        card.model(x)
+    card.model(x, plain=True).mean().backward()
+    assert card.model.conv_in.weight.grad is not None
+
+
+def test_train_step_on_card_vs_cpu(cuda):
+    """Two train steps (the first at rate 0) on the card against the CPU from
+    the same weights and patches: losses within 1e-4 relative, parameters
+    within Adam's bound (2 x the rates' sum; RMS 1e-4 of it); no kernel
+    launched."""
+    from animal_vision_tpu_torch.models import train
+
+    cpu, card, cfg, batches = _train_pair(cuda)
+    step = train.make_train_step("mrae")
+    M.reset_launches()
+    T.reset_launches()
+    for rgb, hsi in batches:
+        cpu, mc = step(cpu, rgb, hsi)
+        card, mg = step(card, rgb, hsi)
+        assert abs(mg["loss"].item() - mc["loss"].item()) <= 1e-4 * abs(mc["loss"].item())
+    assert set(M.LAUNCHES.values()) == {0} and T.LAUNCHES["ffn"] == 0
+    want = dict(cpu.model.named_parameters())
+    diffs = torch.cat([(p.detach().cpu() - want[k].detach()).flatten() for k, p in card.model.named_parameters()])
+    bound = 2 * sum(cfg.schedule(c) for c in range(len(batches)))
+    assert diffs.abs().max().item() <= bound
+    assert diffs.pow(2).mean().sqrt().item() <= 1e-4 * bound
+
+
+def test_kernel_forward_after_a_train_step(cuda):
+    """After train steps on the card (the plain versions under autograd)
+    the kernel forward reads the new weights: the launches of one stage-1
+    forward, within 5e-4 of the plain forward at the stepped weights, and
+    unlike the forward before the steps."""
+    from animal_vision_tpu_torch.models import train
+
+    _, card, _, batches = _train_pair(cuda)
+    x = torch.from_numpy(np.random.default_rng(9).random((1, 40, 64, 3), dtype=np.float32)).to(cuda)
+    with torch.no_grad():
+        before = card.model(x)
+    step = train.make_train_step("mrae")
+    for rgb, hsi in batches:
+        card, _ = step(card, rgb, hsi)
+    M.reset_launches()
+    T.reset_launches()
+    with torch.no_grad():
+        got = card.model(x)
+        torch.cuda.synchronize()
+        assert M.LAUNCHES == {"conv_kernel": 6, "attn_stats_kernel": 5, "msab_apply_kernel": 5, "up_fuse_kernel": 2}
+        assert T.LAUNCHES == {"ffn": 5}
+        want = card.model(x, plain=True)
+    assert (got - want).abs().max().item() < 5e-4
+    assert (got - before).abs().max().item() > 1e-3
+
+
+def test_exported_program_on_card(cuda):
+    """``models/export.py``: the shipped model's ``torch.export`` program made
+    on the card runs there, within 1e-5 of max |y| of the plain forward and
+    within 5e-4 of the kernel forward."""
+    from animal_vision_tpu_torch.models import export
+
+    model = load_shipped(cuda)
+    fn = export.load_program(export.export_program(model, (1, 32, 48, 3)))
+    x = torch.from_numpy(np.random.default_rng(10).random((1, 32, 48, 3), dtype=np.float32)).to(cuda)
+    with torch.no_grad():
+        got, plain, kernels = fn(x), model(x, plain=True), model(x)
+    assert got.is_cuda
+    assert (got - plain).abs().max().item() <= 1e-5 * plain.abs().max().item()
+    assert (got - kernels).abs().max().item() < 5e-4
+
+
+def test_export_of_the_kernel_forward_raises(cuda):
+    """A trace cannot follow a kernel launch: ``torch.export`` of the kernel
+    forward (``plain=False``) on the card raises, under ``no_grad`` too,
+    instead of tracing the plain versions in its place."""
+
+    class KernelForward(torch.nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, x):
+            return self.model(x)
+
+    model = load_shipped(cuda)
+    x = torch.zeros(1, 16, 16, 3, device=cuda)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="cannot be traced"):
+        torch.export.export(KernelForward(model), (x,), strict=False)
