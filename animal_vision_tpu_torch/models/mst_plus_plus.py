@@ -194,27 +194,37 @@ def _depthwise(w: torch.Tensor, live: bool = False) -> torch.Tensor:
     return _t(w[:, 0].permute(1, 2, 0), live)
 
 
-def _msab(x: torch.Tensor, blocks: list[MsabWeights], plain: bool) -> torch.Tensor:
-    stats = K.attn_stats_plain if plain else K.attn_stats
+def _msab(x: torch.Tensor, blocks: list[MsabWeights], plain: bool, stats=None, ffn=None) -> torch.Tensor:
+    """The MSAB blocks of one level. ``stats`` replaces pass A's statistics
+    (``attn_stats``'s signature) and ``ffn(y, blk)`` the FFN after the plain
+    ``msab_pos``: the hooks of the row-band path (``parallel/fused_shard``)."""
+    stats = stats or (K.attn_stats_plain if plain else K.attn_stats)
     apply = K.msab_apply_plain if plain else K.msab_apply
     for blk in blocks:
-        g, sq, sk = stats(x, blk.wq, blk.wk, blk.heads)
-        x = apply(x, K.attn_matrix(g, sq, sk, blk.rescale, blk.wv, blk.wproj), blk)
+        m = K.attn_matrix(*stats(x, blk.wq, blk.wk, blk.heads), blk.rescale, blk.wv, blk.wproj)
+        x = apply(x, m, blk) if ffn is None else ffn(K.msab_pos_plain(x, m, blk), blk)
     return x
 
 
-def _stage(x: torch.Tensor, st: dict, plain: bool) -> torch.Tensor:
+def _stage(x: torch.Tensor, st: dict, plain: bool, stats=None, ffn=None) -> torch.Tensor:
+    """One MST stage; ``stats(level)``, when given, is ``_msab``'s ``stats``
+    at each level of the U (each level halves the rows), and ``ffn`` its
+    ``ffn``."""
     conv = K.conv_plain if plain else K.conv
     up_fuse = K.up_fuse_plain if plain else K.up_fuse
+
+    def msab(fea, blocks, level):
+        return _msab(fea, blocks, plain, stats and stats(level), ffn)
+
     fea = conv(x, st["embedding"])
     skips = []
-    for blocks, down in st["enc"]:
-        fea = _msab(fea, blocks, plain)
+    for level, (blocks, down) in enumerate(st["enc"]):
+        fea = msab(fea, blocks, level)
         skips.append(fea)
         fea = conv(fea, down)
-    fea = _msab(fea, st["bottleneck"], plain)
-    for (uw, blocks), skip in zip(st["dec"], reversed(skips)):
-        fea = _msab(up_fuse(fea, skip, uw), blocks, plain)
+    fea = msab(fea, st["bottleneck"], len(st["enc"]))
+    for level, (uw, blocks), skip in zip(reversed(range(len(st["dec"]))), st["dec"], reversed(skips)):
+        fea = msab(up_fuse(fea, skip, uw), blocks, level)
     return conv(fea, st["mapping"], residual=x)
 
 

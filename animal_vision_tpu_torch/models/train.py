@@ -2,15 +2,16 @@
 sampling, synthetic scenes, and the train -> checkpoint -> resume -> eval
 demo.
 
-Counterpart of ``animal_vision_tpu/models/train.py`` on one device (its
-sharded step, ``make_sharded_train_step``, belongs to the multi-device
-layer). The reference ships no training code; the JAX package supplies an
-L1 / MRAE objective on random crops with rot / flip augmentation (the
-reference eval harness's ``TrainDataset``), and Adam with
-``optax.warmup_cosine_decay_schedule``. Here the optimizer is
-``torch.optim.Adam`` and the schedule a ``LambdaLR`` equal to optax's at
-every count; the step count, like optax's, starts at 0, so the first update
-runs at the schedule's first value (0 after a warmup).
+Counterpart of ``animal_vision_tpu/models/train.py``: the step on one
+device (``make_train_step``) and over a dp / sp / tp mesh of ranks
+(``make_sharded_train_step``, on ``parallel/``). The reference ships no
+training code; the JAX package supplies an L1 / MRAE objective on random
+crops with rot / flip augmentation (the reference eval harness's
+``TrainDataset``), and Adam with ``optax.warmup_cosine_decay_schedule``.
+Here the optimizer is ``torch.optim.Adam`` and the schedule a ``LambdaLR``
+equal to optax's at every count; the step count, like optax's, starts at
+0, so the first update runs at the schedule's first value (0 after a
+warmup).
 
 The forward of a train step composes the plain versions of the MST++
 kernels on the live parameters (``MSTPlusPlus.forward(x, plain=True)``
@@ -129,8 +130,7 @@ def make_train_step(loss: str = "mrae"):
     arrays), then the schedule's step. ``metrics`` holds the loss, RMSE and
     PSNR at data range 1 of the batch's prediction, as device scalars (no
     synchronisation)."""
-    if loss not in LOSSES:
-        raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
+    _check_loss(loss)
 
     def step(state: TrainState, rgb, hsi):
         device = next(state.model.parameters()).device
@@ -147,6 +147,114 @@ def make_train_step(loss: str = "mrae"):
                        "psnr": metrics.psnr(pred, hsi, data_range=1.0)}
 
     return step
+
+
+def _check_loss(loss: str) -> None:
+    if loss not in LOSSES:
+        raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
+
+
+def make_sharded_train_step(mesh, optimizer: Optimizer, loss: str = "mrae"):
+    """The train step over a ``parallel.mesh.Mesh``: ``(run, place_state)``.
+
+    ``run(state, rgb, hsi) -> (state, metrics)`` takes the whole
+    (B, P, P, 3) / (B, P, P, 31) batch on every rank, like
+    ``make_train_step``'s step, and leaves every rank's state equal:
+
+    - dp: each rank takes its B / dp frames;
+    - sp: each rank runs the plain band forward of
+      ``parallel/fused_shard.py`` under autograd on Pp / sp rows (halo rows
+      and the attention statistics' sum differentiable), and its loss is
+      the sum over the rows it owns divided by the whole batch's count, so
+      the ranks' losses add up to the batch's;
+    - tp: each FFN runs this rank's share of the hidden channels
+      (``parallel.mesh.param_specs``) between Megatron's *f* and *g*.
+
+    Gradients are summed over dp x sp (the ranks of one tp index); those of
+    the tp-split FFN weights, nonzero only on each rank's share, over the
+    whole world. Every rank's Adam then steps the same gradients. Metrics
+    are the batch's, as ``make_train_step`` reports them.
+
+    ``place_state(state)`` gives every rank rank 0's parameters, optimizer
+    state, schedule and step count, in a fresh Adam and schedule built by
+    ``optimizer`` (the JAX ``place_state`` puts the state on the mesh)."""
+    import torch.distributed as dist
+
+    from animal_vision_tpu_torch.parallel import comm, fused_shard
+    from animal_vision_tpu_torch.parallel.mesh import param_specs
+
+    _check_loss(loss)
+    d, s, t = mesh.coords
+    tp = fused_shard.TpSplit(mesh.groups["tp"], t, mesh.tp) if mesh.tp > 1 else None
+
+    def place_state(state: TrainState) -> TrainState:
+        model = state.model
+        params = list(model.parameters())
+        with torch.no_grad():
+            flat = comm.broadcast(torch.cat([p.reshape(-1) for p in params]), src=0)
+            for p, v in zip(params, flat.split([p.numel() for p in params])):
+                p.copy_(v.view_as(p))
+        blob = [{"optimizer": state.optimizer.state_dict(), "scheduler": state.scheduler.state_dict(),
+                 "step": int(state.step)}]
+        if dist.get_rank() == 0:
+            blob[0]["optimizer"]["state"] = {k: {n: v.cpu() if torch.is_tensor(v) else v for n, v in st.items()}
+                                             for k, st in blob[0]["optimizer"]["state"].items()}
+        dist.broadcast_object_list(blob, src=0)
+        opt, sched = optimizer.build(model.parameters())
+        opt.load_state_dict(blob[0]["optimizer"])
+        sched.load_state_dict(blob[0]["scheduler"])
+        return TrainState(model, opt, sched, blob[0]["step"])
+
+    def run(state: TrainState, rgb, hsi):
+        model = state.model
+        device = next(model.parameters()).device
+        rgb, hsi = _on(rgb, device), _on(hsi, device)
+        b, h, w = (int(v) for v in rgb.shape[:3])
+        if not fused_shard.supports((mesh.dp, mesh.sp, 1), b, h, w):
+            raise ValueError(f"a ({b}, {h}, {w}) batch does not split over dp={mesh.dp} and into {mesh.sp} bands "
+                             "of a multiple of 4 rows")
+        bl = b // mesh.dp
+        target = hsi[d * bl:(d + 1) * bl]
+        xpad = fused_shard.pad_frames(rgb[d * bl:(d + 1) * bl])
+        bands = fused_shard.make_bands(int(xpad.shape[1]), mesh.sp, s, mesh.groups["sp"])
+        r0, r1 = bands.own
+        r1 = min(r1, h)
+        target = target[:, r0:r1]
+        count = b * h * w * int(hsi.shape[-1])
+        state.optimizer.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            pred = fused_shard.band_forward(model._layouts(live=True), xpad, bands, plain=True, tp=tp)
+            pred = pred[:, :r1 - r0, :w]
+            err = torch.abs(pred - target)
+            if loss == "mrae":
+                err = err / torch.clamp(target, min=1e-3)
+            local = err.sum() / count
+            local.backward()
+        specs = param_specs(model)
+        split = [p for n, p in model.named_parameters() if tp is not None and specs[n]]
+        split_ids = {id(p) for p in split}
+        rest = [p for p in model.parameters() if id(p) not in split_ids]
+        for params, group in ((rest, mesh.groups["dpsp"]), (split, None)):
+            if params:
+                flat = comm.all_reduce(torch.cat([p.grad.reshape(-1) for p in params]), group)
+                for p, g in zip(params, flat.split([p.numel() for p in params])):
+                    p.grad.copy_(g.view_as(p))
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        with torch.no_grad():
+            pred = pred.detach()
+            sse = torch.zeros(2, b, dtype=torch.float32, device=device)
+            sse[0, d * bl:(d + 1) * bl] = ((pred - target) ** 2).sum(dim=(1, 2, 3))
+            clamped = torch.clamp(pred, 0.0, 1.0) - torch.clamp(target, 0.0, 1.0)
+            sse[1, d * bl:(d + 1) * bl] = (clamped ** 2).sum(dim=(1, 2, 3))
+            tot = comm.all_reduce(torch.cat([local.detach().reshape(1), sse.reshape(-1)]), mesh.groups["dpsp"])
+            sse = tot[1:].reshape(2, b)
+            per_image = count // b
+        return state, {"loss": tot[0], "rmse": torch.sqrt(sse[0].sum() / count),
+                       "psnr": torch.mean(10.0 * torch.log10(1.0 / (sse[1] / per_image)))}
+
+    return run, place_state
 
 
 # ---------------------------------------------------------------------------

@@ -120,6 +120,15 @@ raises on failure:
    the eval protocol of the shipped weights
    on in-memory scenes against the CPU (the ``.mat`` and ``.jpg`` I/O is
    named as CPU-tested only); the convergence demo's JAX bars;
+   then the multi-device layer (``multidevice_phase``), its ranks as
+   processes on the card (gloo, host-staged, when they share one): the
+   MST++ band forward at 1080x1920 with sp 2 and at 544x960 with
+   sp 2 x tp 2 (every rank launching every MST++ kernel, counters set to 0
+   just before and read just after in each rank; < 5e-4 from the
+   unsharded forward; ms beside it, halo bytes, transport ms), 1080x1920
+   with sp 4 (no band path: run whole), the pp pipeline on 4 x 272x480,
+   the sharded train step with dp 2 and sp 2 against one process, the
+   fleet bit-equal to ``visualize``, and the dry run's summary line;
    then the library: the functions no species calls (band integrals,
    ``map_uv_purple_yellow``, the general Gaussian blurs, ``tapetum_bloom``,
    ``rod_vision``, ``unsharp_mask``, ``dog_bandpass``, ``remap_bilinear``,
@@ -333,6 +342,18 @@ TRAIN_NOT_ON_CARD = {
     "eval_protocol_fixtures": "writes .jpg with cv2 and .mat with h5py (models/quality.py)",
     "predict_image": "reads a .jpg with cv2 and writes a .mat with h5py (models/ensemble.py)",
 }
+MD_SP2_HW = (1080, 1920)  # 2 ranks, sp 2: bands of 540 rows
+MD_SPTP_HW = (544, 960)  # 4 ranks, sp 2 x tp 2: bands of 136 rows
+MD_FALLBACK_HW = (1080, 1920)  # 4 ranks, sp 4: 270-row bands are not 4-aligned, so the frame runs whole
+MD_PP = (4, 272, 480)  # 4 ranks: MST++'s 3 stages and an identity slot, 4 microbatches
+MD_PP_MICRO = 4
+MD_REPS = 10
+MD_PP_REPS = 5
+MD_TRAIN = (3, 20, 128)  # steps, batch, patch of the sharded train steps (dp 2, then sp 2)
+MD_KERNELS = ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel", "up_fuse_kernel", "ffn")
+MD_FLEET = ("dog", "pig", "rat", "lion")
+MD_FLEET_REPS = 5
+MD_TIMEOUT_S = 400
 REPORT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_report.json"
 
 
@@ -2724,6 +2745,311 @@ def train_phase(device: torch.device, steps=TRAIN_STEPS, batch=TRAIN_BATCH, patc
     return result
 
 
+# ---------------------------------------------------------------------------
+# Multi-device: ranks as processes on the card
+# ---------------------------------------------------------------------------
+
+
+def md_frames(seed: int, shape: tuple, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).random((*shape, 3), dtype=np.float32)).to(device)
+
+
+def md_train_batches(steps: int, batch: int, patch: int, device: torch.device) -> list:
+    """The sharded train steps' batches, made from a seed alike on every rank."""
+    rng = np.random.default_rng(SEED + 30)
+    return [(torch.from_numpy(rng.uniform(0, 1, (batch, patch, patch, 3)).astype(np.float32)).to(device),
+             torch.from_numpy(rng.uniform(0.05, 1, (batch, patch, patch, 31)).astype(np.float32)).to(device))
+            for _ in range(steps)]
+
+
+def md_setup(device: torch.device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
+
+    return load_shipped(device)
+
+
+def md_forward(run, x: torch.Tensor, want: torch.Tensor, reps: int, device: torch.device) -> dict:
+    """One forward with the launch counters set to 0 just before it and read
+    just after, its max abs error against ``want``; then ``reps`` timed
+    forwards (host clock, each ending synchronized) with the transport
+    counters per forward."""
+    from animal_vision_tpu_torch.parallel import comm
+
+    reset_counters()
+    got = run(x)
+    sync(device)
+    launches = {k: v for k, v in counters().items() if v}
+    err = (got - want).abs().max().item()
+    del got
+    comm.reset_traffic()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run(x)
+        sync(device)
+        samples.append((time.perf_counter() - t0) * 1e3)
+    traffic = {k: {n: v / reps for n, v in c.items()} for k, c in comm.TRAFFIC.items()}
+    return dict(launches=launches, max_abs_err=err, ms=ms_stats(samples), traffic=traffic,
+                transport_ms=sum(c["ms"] for c in traffic.values()))
+
+
+def md_train(device: torch.device, dims: tuple, steps: int, batch: int, patch: int) -> dict:
+    """``steps`` sharded train steps of the published MST++ from the seeded
+    weights: losses, host ms per step, rank 0's parameters."""
+    import torch.distributed as dist
+
+    from animal_vision_tpu_torch.models import train
+    from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus
+    from animal_vision_tpu_torch.parallel import make_mesh
+
+    cfg = train.make_optimizer(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup=1)
+    state = train.init_state(MSTPlusPlus(), cfg, seed=SEED, device=device)
+    run, place = train.make_sharded_train_step(make_mesh(*dims), cfg)
+    state = place(state)
+    losses, samples = [], []
+    for rgb, hsi in md_train_batches(steps, batch, patch, device):
+        t0 = time.perf_counter()
+        state, m = run(state, rgb, hsi)
+        sync(device)
+        samples.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    params = {k: v.detach().cpu().numpy() for k, v in state.model.named_parameters()} if dist.get_rank() == 0 else None
+    return dict(losses=losses, step_ms=samples, params=params)
+
+
+def md_two_ranks(device: torch.device, hw: tuple, reps: int, train_cfg: tuple) -> dict:
+    """Rank function of the 2-rank world: the sp 2 band forward at ``hw``,
+    then the sharded train step with dp 2 and with sp 2."""
+    import torch.distributed as dist
+
+    from animal_vision_tpu_torch.parallel import make_mesh, sharded_inference_fn
+
+    model = md_setup(device)
+    x = md_frames(SEED + 40, (1, *hw), device)
+    with torch.no_grad():
+        want = model(x)
+    out = dict(rank=dist.get_rank(), backend=dist.get_backend(), device=str(device))
+    out["sp2"] = md_forward(sharded_inference_fn(make_mesh(sp=2), model), x, want, reps, device)
+    del x, want
+    torch.cuda.empty_cache()
+    out["train"] = {name: md_train(device, dims, *train_cfg) for name, dims in (("dp2", (2, 1, 1)),
+                                                                              ("sp2", (1, 2, 1)))}
+    return out
+
+
+def md_four_ranks(device: torch.device, sptp_hw: tuple, fallback_hw: tuple, pp: tuple, reps: int,
+                  pp_reps: int) -> dict:
+    """Rank function of the 4-rank world: the sp 2 x tp 2 band forward at
+    ``sptp_hw``, the fallback at ``fallback_hw`` with sp 4, and the pp
+    pipeline on ``pp`` frames."""
+    import torch.distributed as dist
+
+    from animal_vision_tpu_torch.parallel import fused_shard, make_mesh, sharded_inference_fn
+    from animal_vision_tpu_torch.parallel.pipeline import make_pp_mesh, mst_plus_plus_pp_forward
+
+    model = md_setup(device)
+    out = dict(rank=dist.get_rank(), backend=dist.get_backend(), device=str(device))
+    x = md_frames(SEED + 41, (1, *sptp_hw), device)
+    with torch.no_grad():
+        want = model(x)
+    out["sp2tp2"] = md_forward(sharded_inference_fn(make_mesh(sp=2, tp=2), model), x, want, reps, device)
+
+    mesh = make_mesh(sp=4)
+    x = md_frames(SEED + 40, (1, *fallback_hw), device)
+    with torch.no_grad():
+        want = model(x)
+    out["fallback"] = dict(bands=fused_shard.supports(mesh, 1, *fallback_hw),
+                           **md_forward(sharded_inference_fn(mesh, model), x, want, 1, device))
+    del x, want
+    torch.cuda.empty_cache()
+
+    ppm = make_pp_mesh(4)
+    x = md_frames(SEED + 40, pp, device)
+    with torch.no_grad():
+        want = model(x)
+    out["pp"] = dict(slot=ppm.index, **md_forward(lambda v: mst_plus_plus_pp_forward(model, ppm, v, MD_PP_MICRO), x,
+                                                  want, pp_reps, device))
+    return out
+
+
+def multidevice_phase(device: torch.device, sp2_hw=MD_SP2_HW, sptp_hw=MD_SPTP_HW, fallback_hw=MD_FALLBACK_HW,
+                      pp=MD_PP, reps=MD_REPS, pp_reps=MD_PP_REPS, train_cfg=MD_TRAIN, fleet_hw=MAIN_HW) -> dict:
+    """The multi-device layer (``parallel/``, ``models/train.py``'s
+    ``make_sharded_train_step``) with its ranks as processes. On a host
+    with one card they all share it (gloo, every CUDA tensor staged through
+    pinned host memory; the ranks share the SMs, so nothing here can be
+    faster than one process); with a card per rank they take NCCL:
+
+    1. 2 ranks: ``fused_sharded_forward`` of the shipped MST++ at
+       ``sp2_hw`` with sp 2, through ``sharded_inference_fn``: each rank's
+       kernel launches (counters set to 0 just before the forward and read
+       just after; every rank must launch ``MD_KERNELS``), max abs error
+       against the unsharded kernel forward (< ``MST_FORWARD_TOL``), host
+       ms per forward (median, p90 of ``reps``) beside the unsharded forward
+       in this process, halo bytes and transport ms per forward; then
+       ``make_sharded_train_step`` with dp 2 and with sp 2 for
+       ``train_cfg`` = (steps, batch, patch) against ``make_train_step`` in
+       this process on the same batches: losses within ``TRAIN_LOSS_REL``,
+       parameters within Adam's bound, ms per step;
+    2. 4 ranks: the band forward at ``sptp_hw`` with sp 2 x tp 2 (tp folds
+       into the bands), the same readings; ``fallback_hw`` with sp 4, whose
+       bands would not be 4-aligned, so every rank runs it whole (< the
+       same bar); ``mst_plus_plus_pp_forward`` on ``pp`` frames in
+       ``MD_PP_MICRO`` microbatches (the slots with a stage launch every
+       kernel, the identity slot conv_in and conv_out), error, ms and the
+       bubble share;
+    3. ``render_fleet`` of ``MD_FLEET`` on one ``fleet_hw`` frame over
+       every card of the host, each species bit-equal to ``visualize`` on
+       its card (one process);
+    4. ``dryrun_multichip(4)``'s summary line."""
+    import torch.distributed  # noqa: F401  (fails early where the build has no distributed support)
+
+    from animal_vision_tpu_torch.models import train
+    from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus
+    from animal_vision_tpu_torch.parallel import dryrun, fused_shard
+    from animal_vision_tpu_torch.parallel.fleet import assign_devices, render_fleet
+    from animal_vision_tpu_torch.parallel.launch import spawn
+    from animal_vision_tpu_torch.parallel.pipeline import bubble_share
+    from animal_vision_tpu_torch.species import get_animal
+
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    model = md_setup(device)
+    unsharded = {}
+    with torch.no_grad():
+        for name, shape in (("sp2", (1, *sp2_hw)), ("sp2tp2", (1, *sptp_hw)), ("pp", pp)):
+            x = md_frames(SEED + 40, shape, device)
+            unsharded[name] = wall_ms(lambda: (model(x), sync(device)), reps)
+    del x
+
+    # the single-process train steps on the same batches
+    steps, batch, patch = train_cfg
+    cfg = train.make_optimizer(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup=1)
+    state = train.init_state(MSTPlusPlus(), cfg, seed=SEED, device=device)
+    step = train.make_train_step("mrae")
+    ref_losses, ref_ms = [], []
+    for rgb, hsi in md_train_batches(steps, batch, patch, device):
+        t0 = time.perf_counter()
+        state, m = step(state, rgb, hsi)
+        sync(device)
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+        ref_losses.append(m["loss"].item())
+    ref_params = {k: v.detach().cpu().numpy() for k, v in state.model.named_parameters()}
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    two = spawn(md_two_ranks, 2, device, timeout=MD_TIMEOUT_S, hw=sp2_hw, reps=reps, train_cfg=train_cfg)
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = spawn(md_four_ranks, 4, device, timeout=MD_TIMEOUT_S, sptp_hw=sptp_hw, fallback_hw=fallback_hw, pp=pp,
+                 reps=reps, pp_reps=pp_reps)
+    four_s = time.perf_counter() - t0
+
+    for world in (two, four):
+        for r in world:
+            log(f"[multidevice] rank {r['rank']} of {len(world)}: backend {r['backend']}, device {r['device']}")
+    result = dict(world_seconds={"2": two_s, "4": four_s}, unsharded=unsharded)
+    for name, ranks, hw in (("sp2", two, sp2_hw), ("sp2tp2", four, sptp_hw)):
+        rows = [r[name] for r in ranks]
+        for r, row in zip(ranks, rows):
+            missing = [k for k in MD_KERNELS if not row["launches"].get(k)]
+            if cuda and missing:
+                raise AssertionError(f"multidevice {name}: rank {r['rank']} launched none of {missing}: "
+                                     f"{row['launches']}")
+        err = max(row["max_abs_err"] for row in rows)
+        if not err < MST_FORWARD_TOL:
+            raise AssertionError(f"multidevice {name}: {err:.3g} from the unsharded kernel forward")
+        med = max(row["ms"]["median"] for row in rows)
+        p90 = max(row["ms"]["p90"] for row in rows)
+        halo = [row["traffic"]["p2p"]["bytes"] for row in rows]
+        transport = [row["transport_ms"] for row in rows]
+        log(f"[multidevice] {name} band forward {hw[0]}x{hw[1]} on {len(rows)} ranks: launches per rank "
+            + "; ".join(str({k: row['launches'].get(k, 0) for k in MD_KERNELS}) for row in rows)
+            + f"; max {err:.3g} from unsharded; {med:.1f} ms per forward (p90 {p90:.1f}, slowest rank) against "
+            f"{unsharded[name]['median']:.1f} ms unsharded (p90 {unsharded[name]['p90']:.1f}); halo "
+            f"{max(halo) / 1e6:.2f} MB sent per rank and forward; transport {max(transport):.1f} ms per forward "
+            f"(all-gather {max(row['traffic']['all_gather']['ms'] for row in rows):.1f}, halo "
+            f"{max(row['traffic']['p2p']['ms'] for row in rows):.1f}, stats "
+            f"{max(row['traffic']['all_reduce']['ms'] for row in rows):.1f})")
+        result[name] = dict(hw=list(hw), ranks=rows, max_abs_err=err, ms_median=med, ms_p90=p90,
+                            halo_bytes_per_rank=max(halo), transport_ms=max(transport))
+
+    fb = [r["fallback"] for r in four]
+    fb_err = max(row["max_abs_err"] for row in fb)
+    if any(row["bands"] for row in fb) or not fb_err < MST_FORWARD_TOL:
+        raise AssertionError(f"multidevice fallback: {fb}")
+    log(f"[multidevice] {fallback_hw[0]}x{fallback_hw[1]} on 4 ranks with sp 4: no band path "
+        f"({fused_shard.padded(fallback_hw[0]) / 4:g}-row bands), "
+        f"each rank runs it whole; max {fb_err:.3g} from unsharded; launches per rank "
+        + "; ".join(str({k: row['launches'].get(k, 0) for k in MD_KERNELS}) for row in fb))
+    result["fallback"] = dict(hw=list(fallback_hw), ranks=fb, max_abs_err=fb_err)
+
+    pps = [r["pp"] for r in four]
+    pp_err = max(row["max_abs_err"] for row in pps)
+    for row in pps:
+        need = MD_KERNELS if row["slot"] < 3 else ("conv_kernel",)
+        if cuda and any(not row["launches"].get(k) for k in need):
+            raise AssertionError(f"multidevice pp: slot {row['slot']} launched {row['launches']}")
+    if not pp_err < MST_FORWARD_TOL:
+        raise AssertionError(f"multidevice pp: {pp_err:.3g} from unsharded")
+    bubble = bubble_share(4, MD_PP_MICRO)
+    pp_med = max(row["ms"]["median"] for row in pps)
+    log(f"[multidevice] pp: MST++'s 3 stages and an identity slot over 4 ranks, {pp[0]} x {pp[1]}x{pp[2]} in "
+        f"{MD_PP_MICRO} microbatches: max {pp_err:.3g} from unsharded; {pp_med:.1f} ms per forward (p90 "
+        f"{max(row['ms']['p90'] for row in pps):.1f}) against {unsharded['pp']['median']:.1f} ms unsharded; "
+        f"bubble share {bubble:.3f}; transport {max(row['transport_ms'] for row in pps):.1f} ms per forward")
+    result["pp"] = dict(ranks=pps, max_abs_err=pp_err, ms_median=pp_med, bubble_share=bubble)
+
+    # the sharded train steps against the single-process ones
+    bound = 2 * sum(cfg.schedule(c) for c in range(steps))
+    result["train"] = dict(steps=steps, batch=batch, patch=patch, single=dict(losses=ref_losses,
+                                                                              step_ms=ms_stats(ref_ms)))
+    for name in ("dp2", "sp2"):
+        got = two[0]["train"][name]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref_losses))
+        diffs = np.concatenate([(got["params"][k] - v).ravel() for k, v in ref_params.items()])
+        pmax, prms = float(np.abs(diffs).max()), float(np.sqrt(np.mean(diffs ** 2)))
+        if rel > TRAIN_LOSS_REL or pmax > bound or prms > TRAIN_RMS_OF_BOUND * bound:
+            raise AssertionError(f"multidevice train {name}: losses {got['losses']} against {ref_losses} "
+                                 f"({rel:.3g} relative); parameters {pmax:.3g} max, {prms:.3g} RMS (bound {bound:.3g})")
+        step_ms = ms_stats([max(r["train"][name]["step_ms"][i] for r in two) for i in range(steps)])
+        log(f"[multidevice] train {name} (2 ranks), {steps} steps of {batch}x{patch}x{patch}: losses "
+            f"{[round(v, 6) for v in got['losses']]} ({rel:.3g} relative from one process); parameters "
+            f"{pmax:.3g} max, {prms:.3g} RMS apart (bound {bound:.3g}); {step_ms['median']:.1f} ms per step "
+            f"(p90 {step_ms['p90']:.1f}) against {np.median(ref_ms):.1f} ms in one process")
+        result["train"][name] = dict(losses=got["losses"], max_rel=rel, params_max=pmax, params_rms=prms,
+                                     bound=bound, step_ms=step_ms)
+
+    # the fleet, one process
+    frame = np.random.default_rng(SEED + 43).integers(0, 256, (*fleet_hw, 3), dtype=np.uint8)
+    devices = None if cuda else [device]  # every card of the host
+    placement = assign_devices(MD_FLEET, devices)
+    fleet = render_fleet(frame, MD_FLEET, devices)
+    for name in MD_FLEET:
+        want = get_animal(name, placement[name]).visualize(frame)
+        if not (np.array_equal(fleet[name][1], want[1]) and np.array_equal(fleet[name][0], want[0])):
+            raise AssertionError(f"multidevice fleet: {name} differs from visualize")
+    fleet_ms = wall_ms(lambda: render_fleet(frame, MD_FLEET, devices), MD_FLEET_REPS)
+    visualize_ms = wall_ms(lambda: [get_animal(n, placement[n]).visualize(frame) for n in MD_FLEET], MD_FLEET_REPS)
+    log(f"[multidevice] render_fleet of {', '.join(MD_FLEET)} at {fleet_hw[0]}x{fleet_hw[1]} on "
+        f"{', '.join(str(placement[n]) for n in MD_FLEET)}: bit-equal to visualize; {fleet_ms['median']:.1f} ms "
+        f"(p90 {fleet_ms['p90']:.1f}) against {visualize_ms['median']:.1f} ms for the four visualize calls")
+    result["fleet"] = dict(hw=list(fleet_hw), devices=[str(placement[n]) for n in MD_FLEET], bit_equal=True,
+                           ms=fleet_ms, visualize_ms=visualize_ms)
+
+    t0 = time.perf_counter()
+    line = dryrun.dryrun_multichip(4, device)
+    result["dryrun"] = dict(line=line, seconds=time.perf_counter() - t0)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[multidevice] phase {result['seconds']:.1f} s (2-rank world {two_s:.1f} s, 4-rank world {four_s:.1f} s, "
+        f"dry run {result['dryrun']['seconds']:.1f} s)")
+    return result
+
+
 def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict], ffn_rows: list[dict],
             launches: dict, ablation: dict, gelu_probe: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
@@ -2841,6 +3167,8 @@ def main() -> int:
     no_rungs("serve")
     train_run = train_phase(device)
     no_rungs("train")
+    multidevice_run = multidevice_phase(device)
+    no_rungs("multidevice")
     library_run = library_phase(device)
     no_rungs("library")
     profile_run = profile_phase(device)
@@ -2865,7 +3193,8 @@ def main() -> int:
                                       mst_cases=mst_rows, ffn_cases=ffn_rows, main_path=main_run,
                                       uv_main_path=uv_run, mst_main_path=mst_run, mst_l_main_path=mst_l_run,
                                       gelu_probe=gelu_probe, zoo=zoo_run,
-                                      stream=stream_run, serve=serve_run, train=train_run, library=library_run,
+                                      stream=stream_run, serve=serve_run, train=train_run,
+                                      multidevice=multidevice_run, library=library_run,
                                       profile=profile_run,
                                       degrade=degrade_run,
                                       kernels=kernels["kernels"], seconds=time.perf_counter() - t0), indent=1))

@@ -2,7 +2,8 @@
 I/O modules import cv2 inside the functions that use it), no h5py (the
 ``.mat`` I/O imports it likewise), no optax or orbax (the port trains with
 ``torch.optim`` and checkpoints with ``torch.save``), and no work at import
-time: no kernel library and no frame ring is built or loaded."""
+time: no kernel library and no frame ring is built or loaded, and no
+process group is created (``parallel/``)."""
 
 import json
 import os
@@ -30,7 +31,9 @@ bad = sorted(
 )
 from animal_vision_tpu_torch.native import ring
 from animal_vision_tpu_torch.ops import _build
-print(json.dumps({"modules": names, "bad": bad, "libs": sorted(_build._libs), "ring": ring._lib is not None}))
+import torch.distributed as dist
+print(json.dumps({"modules": names, "bad": bad, "libs": sorted(_build._libs), "ring": ring._lib is not None,
+                  "pg": dist.is_initialized()}))
 """
 
 
@@ -43,6 +46,7 @@ def test_port_imports_no_jax_package_or_cv2():
     assert report["bad"] == []
     assert report["libs"] == []  # importing builds and loads no kernel library
     assert report["ring"] is False  # nor the frame ring
+    assert report["pg"] is False  # and no process group
     expected = {
         "animal_vision_tpu_torch.core.blur", "animal_vision_tpu_torch.core.color",
         "animal_vision_tpu_torch.core.effects", "animal_vision_tpu_torch.core.geometry",
@@ -67,7 +71,8 @@ def test_port_imports_no_jax_package_or_cv2():
         "models.simple_nets", "models.hinet", "models.mprnet", "models.restormer", "models.mirnet", "models.hdnet",
         "models.sgn", "models.awan", "models.tiling", "models.ensemble", "models.summary", "server",
         "server.app", "server.miniasgi", "server.miniosio", "models.data", "models.eval", "models.train",
-        "models.export", "models.quality")}
+        "models.export", "models.quality", "parallel", "parallel.launch", "parallel.comm", "parallel.mesh",
+        "parallel.fused_shard", "parallel.pipeline", "parallel.fleet", "parallel.dryrun")}
     assert expected <= set(report["modules"])
 
 

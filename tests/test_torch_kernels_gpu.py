@@ -1017,3 +1017,25 @@ def test_export_of_the_kernel_forward_raises(cuda):
     x = torch.zeros(1, 16, 16, 3, device=cuda)
     with torch.no_grad(), pytest.raises(RuntimeError, match="cannot be traced"):
         torch.export.export(KernelForward(model), (x,), strict=False)
+
+
+def test_band_forward_on_card_two_ranks(cuda):
+    """``parallel/fused_shard.py`` on the card: 2 ranks on the one card
+    (gloo, host-staged transport), sp 2 at 272x480 with the shipped
+    weights; each rank launches every MST++ kernel, and the whole output is
+    within 5e-4 of the unsharded kernel forward."""
+    import torch_parallel_checks as checks
+
+    from animal_vision_tpu_torch.parallel.launch import spawn
+
+    x = np.random.default_rng(12).random((1, 272, 480, 3), dtype=np.float32)
+    res = spawn(checks.card_band_check, 2, cuda, timeout=300, x=x)
+    model = load_shipped(cuda)
+    with torch.no_grad():
+        want = model(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    for r in res:
+        if torch.cuda.device_count() < 2:
+            assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert all(r["launches"][k] > 0 for k in ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel",
+                                                   "up_fuse_kernel", "ffn")), r["launches"]
+        assert np.abs(r["out"] - want).max() < 5e-4
