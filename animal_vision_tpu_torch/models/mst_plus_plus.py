@@ -392,11 +392,15 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
 
 
 def load_state(path) -> dict[str, torch.Tensor]:
-    """A state dict from a ``.pth``/``.pt`` file in either layout (a
-    ``{"state_dict": ...}`` wrapper and ``module.`` prefixes are removed)."""
+    """A state dict from a ``.pth``/``.pt`` file: a plain state dict in
+    either layout (``synth_v1.pt``), a ``{"state_dict": ...}`` wrapper, or a
+    checkpoint of ``export.save_checkpoint`` (its ``"model"``, as
+    ``tools/train_synth`` writes it); ``module.`` prefixes are removed."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]
+    elif isinstance(sd.get("model"), dict):
+        sd = sd["model"]
     return {k.removeprefix("module."): v for k, v in sd.items()}
 
 

@@ -13,7 +13,9 @@ Counterpart of ``animal_vision_tpu/models/quality.py``:
    against the Valid_Spec ``.mat`` cube) over synthetic fixtures written by
    the ``.mat`` writer and cv2, scored with the shipped ``synth_v1``
    weights; then the same on the held-out ``xgen_scenes`` family. It needs
-   cv2 and h5py.
+   cv2 and h5py. Where either is missing (the card's host), the training
+   tools score the same scenes in memory (``eval_protocol_in_memory``,
+   chosen by ``protocol_route``).
 """
 
 from __future__ import annotations
@@ -79,15 +81,60 @@ def eval_protocol_fixtures(
     return meval.validate(apply_fn, scenes, crop=128)
 
 
-def load_pretrained(device: str | torch.device | None = None) -> MSTPlusPlus | None:
-    """The full 3-stage MST++ with the shipped synthetic-curriculum weights
-    (``pretrained/synth_v1.pt``) on ``device`` (the card when None), for
-    inference; None if the file is absent."""
+def protocol_route() -> str:
+    """How this host scores the eval protocol: ``"files"``
+    (``eval_protocol_fixtures``) where cv2 and h5py import, else
+    ``"in_memory"`` (``eval_protocol_in_memory``)."""
+    from animal_vision_tpu_torch.io.renderer import require_cv2
+    from animal_vision_tpu_torch.models.eval import require_h5py
+
+    try:
+        require_cv2()
+        require_h5py()
+    except ImportError:
+        return "in_memory"
+    return "files"
+
+
+def eval_protocol_in_memory(
+    apply_fn,
+    n_scenes: int = 2,
+    hw: tuple[int, int] = (288, 320),
+    seed: int = 7,
+    scene_fn=None,
+    device: str | torch.device | None = None,
+) -> dict:
+    """``eval_protocol_fixtures`` without its files, for a host that has no
+    cv2 or h5py: the same scenes, each RGB rounded to uint8 as the ``.jpg``
+    is written but with no JPEG round trip, min-max normalized per scene as
+    ``eval.load_rgb_minmax`` reads it, scored by ``validate`` against the
+    float32 cube (which the ``.mat`` round trip keeps exactly) with the
+    128-pixel centre crop."""
+    from animal_vision_tpu_torch.models import eval as meval
+
+    if scene_fn is None:
+        from animal_vision_tpu_torch.models.train import synthetic_scenes as scene_fn
+
+    scenes = []
+    for rgb, hsi in scene_fn(n_scenes, hw[0], hw[1], seed, device):
+        u8 = (rgb * 255.0).round().astype(np.uint8).astype(np.float32)
+        scenes.append(((u8 - u8.min()) / max(u8.max() - u8.min(), 1e-8), hsi))
+    return meval.validate(apply_fn, scenes, crop=128)
+
+
+def load_pretrained(device: str | torch.device | None = None, path=None) -> MSTPlusPlus | None:
+    """The full 3-stage MST++ for inference on ``device`` (the card when
+    None) with the weights of ``path``: by default the shipped
+    synthetic-curriculum weights (``pretrained/synth_v1.pt``; None if that
+    file is absent), or any file ``mst_plus_plus.load_state`` reads, such as
+    the checkpoint ``tools/train_synth`` writes."""
     device = resolve_device(device)
-    if not SHIPPED.is_file():
-        return None
+    if path is None:
+        if not SHIPPED.is_file():
+            return None
+        path = SHIPPED
     model = MSTPlusPlus()
-    model.load_state_dict(load_state(SHIPPED))
+    model.load_state_dict(load_state(path))
     return model.requires_grad_(False).eval().to(device)
 
 

@@ -120,6 +120,17 @@ raises on failure:
    the eval protocol of the shipped weights
    on in-memory scenes against the CPU (the ``.mat`` and ``.jpg`` I/O is
    named as CPU-tested only); the convergence demo's JAX bars;
+   then the model side's entry points (``tools_phase``): the summary CLI
+   over all 11 zoo methods at 256x256 on the card (exit 0, no ``FAILED``),
+   each method's parameters and FLOPs equal to the CPU's (counted in a
+   process of its own meanwhile); ``tools/train_synth.py`` for 300 steps
+   (finite losses, the last chunk's below the first, the held-out PSNR
+   above the initial forward's, no kernel launched by a step, the eval
+   protocol in memory); its saved file reloaded by
+   ``quality.load_pretrained`` through the kernels at 544x960 (the launches
+   of a forward, < 5e-4 from plain); ``tools/finetune_mixed.py`` for 100
+   steps on a copy of the shipped weights, kept (an in-memory protocol
+   never swaps); the shipped ``synth_v1.pt`` unchanged;
    then the multi-device layer (``multidevice_phase``), its ranks as
    processes on the card (gloo, host-staged, when they share one): the
    MST++ band forward at 1080x1920 with sp 2 and at 544x960 with
@@ -167,11 +178,14 @@ from __future__ import annotations
 import asyncio
 import base64
 import contextlib
+import hashlib
+import io
 import itertools
 import json
 import os
 import re
 import resource
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -342,6 +356,19 @@ TRAIN_NOT_ON_CARD = {
     "eval_protocol_fixtures": "writes .jpg with cv2 and .mat with h5py (models/quality.py)",
     "predict_image": "reads a .jpg with cv2 and writes a .mat with h5py (models/ensemble.py)",
 }
+TOOLS_SIZE = 256  # the summary CLI's default frame side
+TOOLS_TRAIN = ("--steps", "300", "--budget-s", "60")  # train_synth's other flags at their defaults
+TOOLS_FINETUNE = ("--steps", "100")
+TOOLS_RELOAD_HW = (544, 960)
+TOOLS_CPU_THREADS = 4  # the CPU counts' process, beside the card's
+TOOLS_CPU_TIMEOUT_S = 240
+TOOLS_CPU_FLOPS = r"""
+import json, sys, torch
+torch.set_num_threads(int(sys.argv[2]))
+from animal_vision_tpu_torch.models import summary, zoo
+size = int(sys.argv[1])
+print(json.dumps({m: summary.summarize(m, size, size, "cpu") for m in zoo.available_models()}))
+"""
 MD_SP2_HW = (1080, 1920)  # 2 ranks, sp 2: bands of 540 rows
 MD_SPTP_HW = (544, 960)  # 4 ranks, sp 2 x tp 2: bands of 136 rows
 MD_FALLBACK_HW = (1080, 1920)  # 4 ranks, sp 4: 270-row bands are not 4-aligned, so the frame runs whole
@@ -2745,6 +2772,208 @@ def train_phase(device: torch.device, steps=TRAIN_STEPS, batch=TRAIN_BATCH, patc
     return result
 
 
+def sha256_file(path) -> str:
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def tools_profiled_step(device: torch.device, train_args: tuple, warmup: int = 3) -> dict:
+    """One ``train_synth`` step (its default batch and patch, the L1 loss)
+    of the published MST++ from seeded weights, after ``warmup`` steps,
+    under ``torch.profiler``: wall ms, the device's busy ms and share, the
+    count of kernels and the largest items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from animal_vision_tpu_torch.models import train as T
+    from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus
+    from animal_vision_tpu_torch.tools import train_synth
+
+    defaults = {"--patch": 64, "--batch": 8, "--scene-hw": 160}
+    args = dict(zip(train_args[::2], train_args[1::2]))
+    patch, batch, hw = (int(args.get(k, v)) for k, v in defaults.items())
+    scenes, _ = train_synth.split_scenes("mixed", 4, hw, device)
+    rgb, hsi = (torch.from_numpy(a[0]).to(device) for a in
+                train_synth.draw_chunk(np.random.default_rng(SEED), scenes, 1, patch, batch))
+    state = T.init_state(MSTPlusPlus(), T.make_optimizer(1e-3, 100, 10), seed=SEED, device=device)
+    step = T.make_train_step("l1")
+    for _ in range(warmup):
+        state, _m = step(state, rgb, hsi)
+    sync(device)
+    cuda = device.type == "cuda"
+    with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        t0 = time.perf_counter()
+        step(state, rgb, hsi)
+        sync(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = trace_device_events(prof)
+    busy = busy_us(events)
+    n_kernels = sum(1 for e in events if e["cat"] == "kernel")
+    top = top_kernels(events, 5)
+    log(f"[tools] one train_synth step ({batch}x{patch}x{patch}), profiled: {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%}), {n_kernels} kernels; top: "
+        + "; ".join(f"{k[:50]} {v:.2f} ms" for k, v in top))
+    return dict(batch=batch, patch=patch, wall_us=wall_us, busy_us=busy, busy_share=busy / wall_us,
+                kernels=n_kernels, top_kernels=top)
+
+
+def tools_phase(device: torch.device, size=TOOLS_SIZE, train_args=TOOLS_TRAIN, finetune_args=TOOLS_FINETUNE,
+                reload_hw=TOOLS_RELOAD_HW, cpu_threads=TOOLS_CPU_THREADS) -> dict:
+    """The model side's entry points on the card, as a user runs them:
+
+    1. ``models/summary.py:main(["--size", size])``: all 11 zoo methods on
+       the card, exit 0, no ``FAILED``; each method's parameters and FLOPs
+       equal to the CPU's, counted in a process of its own while the card
+       works (the count is the plain composition's on both: the kernels'
+       launches would be invisible to ``FlopCounterMode``);
+    2. ``tools/train_synth.py:main`` with ``train_args`` into a temporary
+       directory: every loss finite, the last chunk's mean below the
+       first's, each family's held-out PSNR above the initial forward's, no
+       kernel launched by a train step (the counters read around each);
+       the budget counts from the start, scene making included, as the JAX
+       tool counts it, so it may end the run a chunk early; then one more
+       step of the tool's batch from fresh weights, profiled: its wall
+       time, the device's busy share and the count of kernels it ran;
+    3. the saved file through ``quality.load_pretrained(path=...)`` at
+       ``reload_hw`` on the kernels: the launch counts of one forward,
+       < ``MST_FORWARD_TOL`` from its plain forward;
+    4. ``tools/finetune_mixed.py:main`` with ``finetune_args`` on a
+       temporary copy of the shipped weights: the card's machine has no cv2
+       or h5py, so the protocol is scored in memory and the copy is kept;
+    5. the shipped ``synth_v1.pt`` unchanged (sha256)."""
+    from animal_vision_tpu_torch.models import quality, summary
+    from animal_vision_tpu_torch.models import train as T
+    from animal_vision_tpu_torch.models.mst_plus_plus import SHIPPED
+    from animal_vision_tpu_torch.tools import finetune_mixed, train_synth
+
+    t_phase = time.perf_counter()
+    shipped = sha256_file(SHIPPED)
+    route = quality.protocol_route()
+    on = [] if device.type == "cuda" else ["--device", str(device)]  # the card is every entry point's default
+    cpu_proc = subprocess.Popen([sys.executable, "-c", TOOLS_CPU_FLOPS, str(size), str(cpu_threads)],
+                                cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    result = {"protocol_route": route}
+    try:
+        # 1: the summary CLI on the card, every summarize call kept
+        rows = {}
+        real_summarize = summary.summarize
+
+        def kept(method, *args, **kwargs):
+            rows[method] = real_summarize(method, *args, **kwargs)
+            return rows[method]
+
+        printed = io.StringIO()
+        summary.summarize = kept
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                rc = summary.main(["--size", str(size), *on])
+            summary_s = time.perf_counter() - t0
+        finally:
+            summary.summarize = real_summarize
+        lines = printed.getvalue().splitlines()
+        log("[tools] summary CLI on the card:\n" + "\n".join(lines))
+        if rc != 0 or any("FAILED" in line for line in lines) or len(rows) != 11 or len(lines) != 12:
+            raise AssertionError(f"tools: the summary CLI exited {rc} with {lines}")
+
+        # 2: train_synth, the train steps' launches counted
+        real_make = T.make_train_step
+        step_launches = []
+
+        def counted_make(loss):
+            step = real_make(loss)
+
+            def counted(state, rgb, hsi):
+                before = sum(counters().values())
+                out = step(state, rgb, hsi)
+                step_launches.append(sum(counters().values()) - before)
+                return out
+
+            return counted
+
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "synth_tools.pt")
+            T.make_train_step = counted_make
+            try:
+                ts = train_synth.main([*train_args, *on, "--out", out])
+            finally:
+                T.make_train_step = real_make
+            init, final = ts["held_out_log"][0], ts["held_out"]
+            if not (ts["steps"] == len(step_launches) == len(ts["losses"]) and np.isfinite(ts["losses"]).all()
+                    and ts["chunk_loss"][-1] < ts["chunk_loss"][0] and not any(step_launches)
+                    and all(final[f]["psnr"] > init[f]["psnr"] for f in final) and ts["protocol"] == route):
+                raise AssertionError(f"tools: train_synth {[ts[k] for k in ('steps', 'chunk_loss', 'protocol')]}, "
+                                     f"held out {init} -> {final}, launches in steps {sum(step_launches)}")
+            log(f"[tools] train_synth {' '.join(train_args)}: {ts['steps']} steps, chunk losses "
+                f"{[round(v, 4) for v in ts['chunk_loss']]}, {ts['ms_per_step_median']:.1f} ms per step (median "
+                f"of chunks), no kernel in a step; held-out PSNR "
+                + ", ".join(f"{f} {init[f]['psnr']:.2f} -> {final[f]['psnr']:.2f} dB" for f in final)
+                + f"; protocol ({ts['protocol']}) "
+                + ", ".join(f"{f} {v['psnr']:.2f} dB" for f, v in ts["eval_protocol"].items())
+                + f"; {ts['wall_s']:.1f} s")
+            result["train_synth"] = {k: v for k, v in ts.items() if k != "losses"}
+            result["profiled_step"] = tools_profiled_step(device, train_args)
+
+            # 3: the saved file through the kernels
+            model = quality.load_pretrained(device, path=out)
+            fh, fw = reload_hw
+            gen = torch.Generator().manual_seed(SEED + 16)
+            x = torch.rand((1, fh, fw, 3), generator=gen).to(device)
+            expected = {**MST_PER_FORWARD, **MST_FFN_PER_FORWARD}
+            with torch.no_grad():
+                with plain_forbidden_on_cuda():
+                    reset_counters()
+                    y = model(x)
+                    sync(device)
+                    moved = {k: v for k, v in counters().items() if k in expected}
+                plain = model(x, plain=True)
+            err = (y - plain).abs().max().item()
+            if (device.type == "cuda" and moved != expected) or not (torch.isfinite(y).all().item()
+                                                                     and err < MST_FORWARD_TOL):
+                raise AssertionError(f"tools: the saved weights' forward at {fh}x{fw} launched {moved}, "
+                                     f"{err:.3g} from plain")
+            log(f"[tools] {out} reloaded by quality.load_pretrained: {fh}x{fw} forward launches {moved}, max {err:.3g} "
+                "from plain")
+            result["reload"] = dict(hw=[fh, fw], launches=moved, max_abs_err=err)
+            del model, x, y, plain
+
+            # 4: finetune_mixed on a copy of the shipped weights
+            src = os.path.join(tmp, "synth_v1.pt")
+            shutil.copyfile(SHIPPED, src)
+            ft = finetune_mixed.main([*finetune_args, *on, "--src", src])
+            kept_src = sha256_file(src) == shipped
+            if not (ft["protocol"] == route and np.isfinite(ft["losses"]).all()
+                    and (route == "files" or (not ft["swapped"] and kept_src))):
+                raise AssertionError(f"tools: finetune_mixed {ft['protocol']}, swapped {ft['swapped']}, copy kept "
+                                     f"{kept_src}")
+            log(f"[tools] finetune_mixed {' '.join(finetune_args)}: {ft['steps']} steps; protocol ({ft['protocol']}) "
+                f"synth {ft['start']['synth']['psnr']:.2f} -> {ft['final']['synth']['psnr']:.2f}, xgen "
+                f"{ft['start']['xgen']['psnr']:.2f} -> {ft['final']['xgen']['psnr']:.2f} dB; gates passed "
+                f"{ft['gates_passed']}, swapped {ft['swapped']}, the copy kept {kept_src}; {ft['wall_s']:.1f} s")
+            result["finetune_mixed"] = dict({k: v for k, v in ft.items() if k != "losses"}, copy_kept=kept_src)
+
+        # 1, continued: the CPU's counts
+        t0 = time.perf_counter()
+        cpu_out, cpu_err = cpu_proc.communicate(timeout=TOOLS_CPU_TIMEOUT_S)
+        if cpu_proc.returncode != 0:
+            raise AssertionError(f"tools: the CPU counts failed: {cpu_err[-2000:]}")
+        cpu = json.loads(cpu_out.strip().splitlines()[-1])
+        unequal = {m: (rows[m], cpu[m]) for m in cpu if rows.get(m) != cpu[m]}
+        if unequal or set(rows) != set(cpu):
+            raise AssertionError(f"tools: card and CPU summaries differ: {unequal}")
+        log(f"[tools] summary at {size}x{size}: all {len(rows)} methods' parameters and FLOPs equal on the card and "
+            f"the CPU (card {summary_s:.1f} s; waited {time.perf_counter() - t0:.1f} s for the CPU)")
+        result["summary"] = dict(size=size, rows=rows, printed=lines, card_s=summary_s)
+    finally:
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.communicate()
+    if sha256_file(SHIPPED) != shipped:
+        raise AssertionError("tools: the shipped synth_v1.pt changed")
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[tools] shipped synth_v1.pt unchanged; phase {result['seconds']:.1f} s")
+    return result
+
+
 # ---------------------------------------------------------------------------
 # Multi-device: ranks as processes on the card
 # ---------------------------------------------------------------------------
@@ -3167,6 +3396,8 @@ def main() -> int:
     no_rungs("serve")
     train_run = train_phase(device)
     no_rungs("train")
+    tools_run = tools_phase(device)
+    no_rungs("tools")
     multidevice_run = multidevice_phase(device)
     no_rungs("multidevice")
     library_run = library_phase(device)
@@ -3193,7 +3424,7 @@ def main() -> int:
                                       mst_cases=mst_rows, ffn_cases=ffn_rows, main_path=main_run,
                                       uv_main_path=uv_run, mst_main_path=mst_run, mst_l_main_path=mst_l_run,
                                       gelu_probe=gelu_probe, zoo=zoo_run,
-                                      stream=stream_run, serve=serve_run, train=train_run,
+                                      stream=stream_run, serve=serve_run, train=train_run, tools=tools_run,
                                       multidevice=multidevice_run, library=library_run,
                                       profile=profile_run,
                                       degrade=degrade_run,

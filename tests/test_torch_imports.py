@@ -31,9 +31,12 @@ bad = sorted(
 )
 from animal_vision_tpu_torch.native import ring
 from animal_vision_tpu_torch.ops import _build
+from animal_vision_tpu_torch.models import summary
+from animal_vision_tpu_torch.tools import finetune_mixed, train_synth
 import torch.distributed as dist
 print(json.dumps({"modules": names, "bad": bad, "libs": sorted(_build._libs), "ring": ring._lib is not None,
-                  "pg": dist.is_initialized()}))
+                  "pg": dist.is_initialized(),
+                  "mains": [callable(m.main) for m in (summary, train_synth, finetune_mixed)]}))
 """
 
 
@@ -47,6 +50,7 @@ def test_port_imports_no_jax_package_or_cv2():
     assert report["libs"] == []  # importing builds and loads no kernel library
     assert report["ring"] is False  # nor the frame ring
     assert report["pg"] is False  # and no process group
+    assert report["mains"] == [True, True, True]  # the summary CLI and the two training tools
     expected = {
         "animal_vision_tpu_torch.core.blur", "animal_vision_tpu_torch.core.color",
         "animal_vision_tpu_torch.core.effects", "animal_vision_tpu_torch.core.geometry",
@@ -72,7 +76,8 @@ def test_port_imports_no_jax_package_or_cv2():
         "models.sgn", "models.awan", "models.tiling", "models.ensemble", "models.summary", "server",
         "server.app", "server.miniasgi", "server.miniosio", "models.data", "models.eval", "models.train",
         "models.export", "models.quality", "parallel", "parallel.launch", "parallel.comm", "parallel.mesh",
-        "parallel.fused_shard", "parallel.pipeline", "parallel.fleet", "parallel.dryrun")}
+        "parallel.fused_shard", "parallel.pipeline", "parallel.fleet", "parallel.dryrun", "tools",
+        "tools.train_synth", "tools.finetune_mixed")}
     assert expected <= set(report["modules"])
 
 

@@ -1039,3 +1039,55 @@ def test_band_forward_on_card_two_ranks(cuda):
         assert all(r["launches"][k] > 0 for k in ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel",
                                                    "up_fuse_kernel", "ffn")), r["launches"]
         assert np.abs(r["out"] - want).max() < 5e-4
+
+
+@pytest.mark.parametrize("method", ["mst_plus_plus", "mst"])
+def test_summary_flops_on_card_equal_cpu(cuda, method):
+    """``models/summary.py`` counts the plain composition on every device:
+    the card's FLOPs at 64x64 equal the CPU's (the kernel forward's
+    launches would be invisible to ``FlopCounterMode``)."""
+    from animal_vision_tpu_torch.models import summary
+
+    card = summary.summarize(method, 64, 64, device=cuda)
+    assert card == summary.summarize(method, 64, 64, device="cpu")
+    assert card["flops"] > 0
+
+
+def test_train_synth_on_card(cuda, tmp_path):
+    """``tools/train_synth.py``: 100 steps of the default 8 x 64x64 patches
+    on the card, the protocol by this host's route; no kernel launched by a
+    step; the saved file reloads through ``quality.load_pretrained`` and
+    scores the held-out scenes as the run did."""
+    from animal_vision_tpu_torch.models import eval as meval
+    from animal_vision_tpu_torch.models import quality
+    from animal_vision_tpu_torch.models import train as Tr
+    from animal_vision_tpu_torch.tools import train_synth
+
+    launches = []
+    real = Tr.make_train_step
+
+    def counted(loss):
+        step = real(loss)
+
+        def run(state, rgb, hsi):
+            before = sum(M.LAUNCHES.values()) + sum(T.LAUNCHES.values())
+            out = step(state, rgb, hsi)
+            launches.append(sum(M.LAUNCHES.values()) + sum(T.LAUNCHES.values()) - before)
+            return out
+
+        return run
+
+    out = tmp_path / "trained.pt"
+    Tr.make_train_step = counted
+    try:
+        r = train_synth.main(["--steps", "100", "--out", str(out)])
+    finally:
+        Tr.make_train_step = real
+    assert r["steps"] == len(launches) == 100 and not any(launches) and np.isfinite(r["losses"]).all()
+    assert r["protocol"] == quality.protocol_route()
+    assert all(r["held_out"][f]["psnr"] > r["held_out_log"][0][f]["psnr"] for f in ("synth", "xgen"))
+    model = quality.load_pretrained(cuda, path=out)
+    _, held = train_synth.split_scenes("mixed", 24, 160, cuda)
+    for family, scene in held:
+        got = meval.validate(meval.model_apply_fn(model), [scene], crop=0)
+        assert abs(got["psnr"] - r["held_out"][family]["psnr"]) < 1e-3
