@@ -44,6 +44,7 @@ from torch import nn
 
 from animal_vision_tpu_torch.ops import fused_msab as K
 from animal_vision_tpu_torch.ops.fused_msab import MsabWeights
+from animal_vision_tpu_torch.utils.profiling import SETUP, span
 
 SHIPPED = Path(__file__).resolve().parent / "pretrained" / "synth_v1.pt"
 
@@ -278,15 +279,17 @@ class MSTPlusPlus(nn.Module):
         """The parameters in the kernels' layouts, outside autograd: made
         once per device, and again when a parameter's storage or version
         counter moved (an optimizer step, an in-place edit,
-        ``load_state_dict``)."""
-        key = str(device)
-        stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        cached = self._cache.layouts.get(key)
-        if cached is None or cached[0] != stamp:
-            with torch.no_grad():
-                cached = (stamp, self._layouts(live=False))
-            self._cache.layouts[key] = cached
-        return cached[1]
+        ``load_state_dict``). Traced as ``model.weights``, a rebuild as its
+        child ``model.layouts``, booked into ``profiling.SETUP``."""
+        with span("model.weights"):
+            key = str(device)
+            stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
+            cached = self._cache.layouts.get(key)
+            if cached is None or cached[0] != stamp:
+                with span("model.layouts", into=SETUP), torch.no_grad():
+                    cached = (stamp, self._layouts(live=False))
+                self._cache.layouts[key] = cached
+            return cached[1]
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """(N, H, W, 3) -> (N, H, W, 31). ``plain`` composes the kernels'

@@ -7,7 +7,9 @@ rebuilds and an unchanged one loads from the cache. The library exposes
 ``extern "C"`` entry points that take raw pointers and the CUDA stream and
 return ``cudaGetLastError()``; it is loaded with ``ctypes``. Nothing here
 runs at import: the first kernel launch builds what it needs. A failed
-build raises.
+build raises. Under ``torch.profiler`` a launch is an ``ops.launch`` span
+(device context, stream lookup, the call and its error check), and a load
+or build an ``ops.build`` span, booked into ``profiling.SETUP`` either way.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from animal_vision_tpu_torch.utils.profiling import SETUP, span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -101,12 +105,13 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            target = library_path(name)
-            if not target.exists():
-                build_all([name])
-            lib = ctypes.CDLL(str(target))
-            lib.av_error_string.argtypes = [ctypes.c_int]
-            lib.av_error_string.restype = ctypes.c_char_p
+            with span("ops.build", into=SETUP, library=name):
+                target = library_path(name)
+                if not target.exists():
+                    build_all([name])
+                lib = ctypes.CDLL(str(target))
+                lib.av_error_string.argtypes = [ctypes.c_int]
+                lib.av_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 
@@ -121,7 +126,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 def launch(lib: ctypes.CDLL, fn: str, device, *args) -> None:
     """Call entry point ``fn`` with ``args`` and the current stream of the
     CUDA ``device``; raise if it returns a CUDA error."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    check(lib, err, fn)
+    with span("ops.launch", entry=fn):
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, fn)(*args, stream)
+        check(lib, err, fn)

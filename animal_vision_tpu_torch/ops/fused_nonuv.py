@@ -43,6 +43,7 @@ from animal_vision_tpu_torch.core import color as _color
 from animal_vision_tpu_torch.core import effects as _effects
 from animal_vision_tpu_torch.ops import _build
 from animal_vision_tpu_torch.ops.fused_blur import SMS, WARPS_PER_SM, smem_limit
+from animal_vision_tpu_torch.utils.profiling import SETUP, span
 
 #: Kernel launches per wrapper (plain-version calls are not counted).
 LAUNCHES = {"iso_u8": 0, "streak_u8": 0, "pointwise_u8": 0}
@@ -139,10 +140,11 @@ def _query(fn: str, device_index: int, *args) -> int:
 @functools.lru_cache(maxsize=None)
 def _encode_table(device_index: int) -> torch.Tensor:
     device = torch.device("cuda", device_index)
-    table = torch.empty(ENCODE_TABLE, dtype=torch.float32, device=device)
-    status = torch.zeros(2, dtype=torch.int32, device=device)
-    _launch("av_encode_table", table, table.data_ptr(), status.data_ptr())
-    exceptions, collisions = status.tolist()  # synchronizes, once per device
+    with span("ops.build", into=SETUP, library="encode_table"):
+        table = torch.empty(ENCODE_TABLE, dtype=torch.float32, device=device)
+        status = torch.zeros(2, dtype=torch.int32, device=device)
+        _launch("av_encode_table", table, table.data_ptr(), status.data_ptr())
+        exceptions, collisions = status.tolist()  # synchronizes, once per device
     if collisions:
         raise RuntimeError(f"encode_table: {exceptions} floats where the card's encode is not monotone, "
                            f"{collisions} of them at a step that already has one")

@@ -31,7 +31,13 @@ On a CPU animal the same code runs without streams or pinned memory.
 ``timer`` holds the last run's stages: ``ring put`` (frames into a slot),
 ``ring to pinned``, ``h2d``, ``compute``, ``d2h`` (CUDA events, on the card)
 and ``sink`` (the copies out and the caller's sink); ``ring`` is the last
-run's ring (its ``library`` path and ``reads``).
+run's ring (its ``library`` path and ``reads``). The host stages are
+``utils/profiling.span``s booked into ``timer``; under ``torch.profiler``
+each batch also has ``executor.wait`` (for a readable slot),
+``executor.dispatch``, ``executor.ready`` (its D2H done) spans and an
+``executor.held`` record, from the end of its dispatch to the start of its
+emit. The ring and the buffers of a run are ``executor.setup``, booked
+into ``profiling.SETUP``.
 """
 
 from __future__ import annotations
@@ -47,22 +53,30 @@ import torch
 from animal_vision_tpu_torch.io.renderer import compose_split
 from animal_vision_tpu_torch.native.ring import FrameRing
 from animal_vision_tpu_torch.species.base import torch_dtype
-from animal_vision_tpu_torch.utils.profiling import stage_timer
+from animal_vision_tpu_torch.utils.profiling import SETUP, Span, record, span, stage_timer
 
 #: the device stages, each timed between a pair of CUDA events of a batch
 DEVICE_STAGES = ("h2d", "compute", "d2h")
+
+
+def _species(animal) -> str:
+    """The label of ``animal``'s spans: its ``name``, else its class's."""
+    return getattr(animal, "name", type(animal).__name__)
 
 
 @dataclass
 class _Batch:
     """A dispatched batch: host views of its baselines (None when they are
     not emitted) and outputs, and on the card its six timing events (start
-    and end of H2D, compute, D2H; the last one marks the outputs ready)."""
+    and end of H2D, compute, D2H; the last one marks the outputs ready);
+    its number in the run and, while tracing, its dispatch span."""
 
     n: int
     base: np.ndarray | None
     out: np.ndarray
     events: list | None
+    id: int = 0
+    dispatched: Span | None = None
 
 
 class StreamingExecutor:
@@ -92,7 +106,8 @@ class StreamingExecutor:
         except StopIteration:
             return 0
         self.timer = stage_timer()
-        ring = FrameRing(first.nbytes * self.batch, n_slots=self.prefetch + 2)
+        with span("executor.setup", into=SETUP):
+            ring = FrameRing(first.nbytes * self.batch, n_slots=self.prefetch + 2)
         self.ring = ring
         errors: list[BaseException] = []
         producer = threading.Thread(
@@ -114,7 +129,7 @@ class StreamingExecutor:
         """Stack the frames of each batch into a ring slot; close the ring
         at the end, or after the first error (kept for ``run`` to raise)."""
         try:
-            slot, k = None, 0
+            slot, k, b = None, 0, 0
             for frame in frames:
                 frame = np.asarray(frame)
                 if frame.shape != shape or frame.dtype != dtype:
@@ -123,12 +138,12 @@ class StreamingExecutor:
                     slot = ring.acquire((self.batch, *shape), dtype)
                     if slot is None:  # the consumer stopped
                         return
-                with self.timer.stage("ring put"):
+                with span("executor.put", into=self.timer, stage="ring put", batch=b):
                     slot[k] = frame
                 k += 1
                 if k == self.batch:
                     ring.commit(slot.shape)
-                    slot, k = None, 0
+                    slot, k, b = None, 0, b + 1
             if k:
                 ring.commit((k, *shape))
         except Exception as e:  # noqa: BLE001  (raised again by run, in the caller's thread)
@@ -139,34 +154,40 @@ class StreamingExecutor:
     def _consume(self, ring: FrameRing, shape, dtype, sink) -> int:
         device = self.animal.device
         on_card = device.type == "cuda"
-        if on_card and self._streams is None:
-            self._streams = tuple(torch.cuda.Stream(device) for _ in range(3))
         program = self.animal.transform(shape, dtype)
         full = (self.batch, *shape)
         tdtype = torch_dtype(dtype)
-        staging = [torch.empty(full, dtype=tdtype, pin_memory=on_card) for _ in range(2)]
-        outs = [torch.empty(full, dtype=tdtype, pin_memory=on_card) for _ in range(2)] if on_card else None
+        with span("executor.setup", into=SETUP):
+            if on_card and self._streams is None:
+                self._streams = tuple(torch.cuda.Stream(device) for _ in range(3))
+            staging = [torch.empty(full, dtype=tdtype, pin_memory=on_card) for _ in range(2)]
+            outs = [torch.empty(full, dtype=tdtype, pin_memory=on_card) for _ in range(2)] if on_card else None
         bases = [None, None]
         h2d_done = [None, None]
         n, pending = 0, None
         for i in itertools.count():
-            if not ring.wait_readable():
+            with span("executor.wait", batch=i):
+                readable = ring.wait_readable()
+            if not readable:
                 break
             s = i % 2
             if h2d_done[s] is not None:
                 h2d_done[s].synchronize()
             buf = staging[s]
-            with self.timer.stage("ring to pinned"):
+            with span("executor.to_pinned", into=self.timer, stage="ring to pinned", batch=i):
                 got, _ = ring.read_into(buf.data_ptr(), buf.numel() * buf.element_size())
             host = buf[: got[0]]
-            if on_card:
-                batch = self._dispatch_card(program, host, outs[s], bases, s)
-                h2d_done[s] = batch.events[1]
-            else:
-                with self.timer.stage("compute"):
-                    base, out = program(host)
-                emit_base = None if not self.split else (host if base is host else base).numpy()
-                batch = _Batch(host.shape[0], emit_base, out.numpy(), None)
+            with span("executor.dispatch", batch=i) as dispatched:
+                if on_card:
+                    batch = self._dispatch_card(program, host, outs[s], bases, s)
+                    h2d_done[s] = batch.events[1]
+                else:
+                    with span("species.program", into=self.timer, stage="compute", species=_species(self.animal),
+                              frames=host.shape[0]):
+                        base, out = program(host)
+                    emit_base = None if not self.split else (host if base is host else base).numpy()
+                    batch = _Batch(host.shape[0], emit_base, out.numpy(), None)
+            batch.id, batch.dispatched = i, dispatched
             if pending is not None:
                 n += self._emit(pending, sink)
             pending = batch
@@ -189,7 +210,8 @@ class StreamingExecutor:
         with torch.cuda.stream(compute):
             x.record_stream(compute)
             ev[2].record(compute)
-            base, out = program(x)
+            with span("species.program", species=_species(self.animal), frames=k):
+                base, out = program(x)
             ev[3].record(compute)
         d2h.wait_event(ev[3])
         with torch.cuda.stream(d2h):
@@ -210,12 +232,16 @@ class StreamingExecutor:
         return _Batch(k, None if emit_base is None else emit_base.numpy(), out_host.numpy(), ev)
 
     def _emit(self, batch: _Batch, sink) -> int:
+        with span("executor.ready", batch=batch.id) as ready:
+            if batch.events is not None:
+                batch.events[5].synchronize()
+        if ready is not None and batch.dispatched is not None:
+            record("executor.held", batch.dispatched.t1_ns, ready.t0_ns, batch=batch.id, frames=batch.n)
         if batch.events is not None:
             ev = batch.events
-            ev[5].synchronize()
             for j, name in enumerate(DEVICE_STAGES):
                 self.timer.add(name, ev[2 * j].elapsed_time(ev[2 * j + 1]) / 1e3)
-        with self.timer.stage("sink"):
+        with span("executor.sink", into=self.timer, stage="sink", batch=batch.id):
             for i in range(batch.n):
                 if self.split:
                     sink(compose_split(batch.base[i], batch.out[i], right_label=self.right_label))

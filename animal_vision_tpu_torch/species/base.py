@@ -17,6 +17,10 @@ the device's memory, takes the resolution ladder (``DEGRADE_LADDER``):
 area-downscale on the host to the largest rung that fits, run, and
 linear-upscale both outputs on the host. The batched entry points never
 degrade. ``RUNGS`` counts the frames served at each rung.
+
+Under ``torch.profiler`` each program's lookup and call is a
+``species.program`` span (no sync inside), and a program built on a cache
+miss a ``species.build`` span, booked into ``profiling.SETUP`` either way.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from animal_vision_tpu_torch.core import geometry
+from animal_vision_tpu_torch.utils.profiling import SETUP, span
 
 Program = Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
 
@@ -102,10 +107,11 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 class Animal(abc.ABC):
-    """Base class for all species simulators."""
+    """Base class for all species simulators. ``name`` labels its spans."""
 
     def __init__(self, device: str | torch.device = "cuda") -> None:
         self.device = torch.device(device)
+        self.name = type(self).__name__.lower()
         self._programs: dict = {}
 
     @abc.abstractmethod
@@ -118,7 +124,8 @@ class Animal(abc.ABC):
         key = (tuple(int(s) for s in shape[-3:]), torch_dtype(dtype), kernels)
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._build_program(key[0], key[1], kernels)
+            with span("species.build", into=SETUP, species=self.name, shape=key[0]):
+                prog = self._build_program(key[0], key[1], kernels)
             self._programs[key] = prog
         return prog
 
@@ -196,7 +203,8 @@ class Animal(abc.ABC):
         """Run the program and bring both outputs to the host. A baseline
         that is the input frame comes back as a copy of the input, never as
         a view of it and never through the device."""
-        baseline, out = self._program(frames.shape[-3:], frames.dtype)(frames)
+        with span("species.program", species=self.name, frames=frames.shape[0] if frames.dim() == 4 else 1):
+            baseline, out = self._program(frames.shape[-3:], frames.dtype)(frames)
         base = np.array(images, copy=True) if baseline is frames else baseline.cpu().numpy()
         return base, out.cpu().numpy()
 
@@ -207,7 +215,8 @@ class Animal(abc.ABC):
         if images.ndim != 4 or images.shape[3] != 3:
             raise ValueError("Input must be NxHxWx3.")
         frames = self._to_device(images)
-        return self._program(frames.shape[1:], frames.dtype)(frames)
+        with span("species.program", species=self.name, frames=frames.shape[0]):
+            return self._program(frames.shape[1:], frames.dtype)(frames)
 
     def transform(self, shape: tuple[int, ...], dtype=np.uint8) -> Program:
         """The program for frames of ``shape`` (H, W, 3): a function of

@@ -122,6 +122,7 @@ class NonUVAnimal(Animal):
     def __init__(self, spec: NonUVSpec, device: str | torch.device = "cuda"):
         super().__init__(device)
         self.spec = spec
+        self.name = spec.name
 
     def _fused_program(self, h: int) -> Program | None:
         """The uint8 program through one fused kernel, or None when the
