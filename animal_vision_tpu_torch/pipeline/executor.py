@@ -21,8 +21,14 @@ The flow of one run:
   an event of the compute stream. Each device tensor that a stream other
   than its allocating one reads is ``record_stream``-ed, so the caching
   allocator gives its block to no later batch while a copy still reads it.
-  Batch i is dispatched before batch i-1 is emitted, so the card copies and
-  computes while the host fills the ring and runs the sink;
+  When batch i is already readable in the ring, it is dispatched before
+  batch i-1 is emitted, so the card copies and computes while the host runs
+  the sink. When the ring holds no readable slot (a producer slower than
+  the consumer: a live camera, a slow decoder), batch i-1 is emitted at
+  once, before the consumer waits: waiting first would hold it a whole
+  producer period for no overlap. The choice rests only on the ring's
+  occupancy at that moment; ``emitted_early`` counts the last run's batches
+  emitted that way (the last batch always is);
 - a baseline that is the input frame never goes through the device: it is
   read from the staging buffer, which is refilled only after the batch is
   emitted.
@@ -36,8 +42,9 @@ run's ring (its ``library`` path and ``reads``). The host stages are
 each batch also has ``executor.wait`` (for a readable slot),
 ``executor.dispatch``, ``executor.ready`` (its D2H done) spans and an
 ``executor.held`` record, from the end of its dispatch to the start of its
-emit. The ring and the buffers of a run are ``executor.setup``, booked
-into ``profiling.SETUP``.
+emit, whose ``early`` says which of the two orders emitted it. The ring
+and the buffers of a run are ``executor.setup``, booked into
+``profiling.SETUP``.
 """
 
 from __future__ import annotations
@@ -95,6 +102,7 @@ class StreamingExecutor:
         self.prefetch = prefetch
         self.timer = stage_timer()
         self.ring: FrameRing | None = None
+        self.emitted_early = 0
         self._streams = None
 
     def run(self, frames: Iterable[np.ndarray], sink: Callable[[np.ndarray], None]) -> int:
@@ -106,6 +114,7 @@ class StreamingExecutor:
         except StopIteration:
             return 0
         self.timer = stage_timer()
+        self.emitted_early = 0
         with span("executor.setup", into=SETUP):
             ring = FrameRing(first.nbytes * self.batch, n_slots=self.prefetch + 2)
         self.ring = ring
@@ -166,6 +175,10 @@ class StreamingExecutor:
         h2d_done = [None, None]
         n, pending = 0, None
         for i in itertools.count():
+            if pending is not None and not len(ring):
+                # nothing to overlap with: emit now rather than after the wait
+                n += self._emit(pending, sink, early=True)
+                pending = None
             with span("executor.wait", batch=i):
                 readable = ring.wait_readable()
             if not readable:
@@ -189,11 +202,9 @@ class StreamingExecutor:
                     batch = _Batch(host.shape[0], emit_base, out.numpy(), None)
             batch.id, batch.dispatched = i, dispatched
             if pending is not None:
-                n += self._emit(pending, sink)
+                n += self._emit(pending, sink, early=False)
             pending = batch
-        if pending is not None:
-            n += self._emit(pending, sink)
-        return n
+        return n  # the ring ends closed and empty, so the last batch left early
 
     def _dispatch_card(self, program, host: torch.Tensor, out_buf: torch.Tensor, bases: list, s: int) -> _Batch:
         """Queue H2D, compute and D2H of one batch on the three streams."""
@@ -231,12 +242,14 @@ class StreamingExecutor:
             ev[5].record(d2h)
         return _Batch(k, None if emit_base is None else emit_base.numpy(), out_host.numpy(), ev)
 
-    def _emit(self, batch: _Batch, sink) -> int:
+    def _emit(self, batch: _Batch, sink, early: bool) -> int:
+        self.emitted_early += early
         with span("executor.ready", batch=batch.id) as ready:
             if batch.events is not None:
                 batch.events[5].synchronize()
         if ready is not None and batch.dispatched is not None:
-            record("executor.held", batch.dispatched.t1_ns, ready.t0_ns, batch=batch.id, frames=batch.n)
+            record("executor.held", batch.dispatched.t1_ns, ready.t0_ns, batch=batch.id, frames=batch.n,
+                   early=early)
         if batch.events is not None:
             ev = batch.events
             for j, name in enumerate(DEVICE_STAGES):

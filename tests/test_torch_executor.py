@@ -3,7 +3,10 @@ the CPU against the JAX package's on the same frames: dog, pig and kestrel
 at batch 3 on 7 frames (batches of 3, 3 and 1), split both ways. Every
 emitted frame within 1 LSB of JAX (kestrel, a UV species: >= 40 dB PSNR),
 in order; the frames go through the native ring; a sink that keeps every
-frame gets frames of its own."""
+frame gets frames of its own; under a producer slower than the consumer
+each frame reaches the sink before the next is yielded."""
+
+import time
 
 import jax  # noqa: F401  (JAX on the CPU backend, as tests/conftest.py sets it)
 import numpy as np
@@ -96,3 +99,34 @@ def test_failing_sink_stops_the_producer(img_u8):
     frames = (np.roll(img_u8, i, axis=0) for i in range(40))
     with pytest.raises(KeyboardInterrupt):
         StreamingExecutor(get_animal("pig", device="cpu"), batch=1, split=False, prefetch=1).run(frames, sink)
+
+
+def test_paced_producer_gets_each_frame_back_before_the_next(img_u8):
+    """A producer slower than the consumer (a live camera): with no next
+    batch readable, each batch is emitted at once, so frame k reaches the
+    sink before frame k+1 is even yielded, and the run counts those
+    batches as emitted early; the frames are still ``visualize``'s, in
+    order."""
+    gap_s = 0.1
+    frames = [np.roll(img_u8, 7 * i, axis=0) for i in range(5)]
+    animal = get_animal("pig", device="cpu")
+    want = [animal.visualize(f)[1] for f in frames]  # also builds the program before the clock
+    yielded, reached, outs = [], [], []
+
+    def paced():
+        for i, f in enumerate(frames):
+            if i:
+                time.sleep(gap_s)
+            yielded.append(time.perf_counter())
+            yield f
+
+    def sink(frame):
+        reached.append(time.perf_counter())
+        outs.append(frame)
+
+    ex = StreamingExecutor(animal, batch=1, split=False)
+    assert ex.run(paced(), sink) == len(frames)
+    assert all(reached[k] < yielded[k + 1] for k in range(len(frames) - 1)), (yielded, reached)
+    assert ex.emitted_early >= len(frames) - 1
+    for o, w in zip(outs, want, strict=True):
+        np.testing.assert_array_equal(o, w)

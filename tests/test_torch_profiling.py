@@ -2,9 +2,9 @@
 CPU: with no profiler running a span enters no ``record_function``, reads
 no clock, takes no lock and keeps nothing; under ``torch.profiler`` its
 records nest, carry their thread and attributes, and share one offset with
-the exported trace; the executor's hold per batch; ``SETUP``'s program
-builds; and the benchmark's readers of the spans and the trace's gap
-labels on synthetic inputs."""
+the exported trace; the executor's hold per batch and its early emits under
+a paced producer; ``SETUP``'s program builds; and the benchmark's readers
+of the spans and the trace's gap labels on synthetic inputs."""
 
 from __future__ import annotations
 
@@ -209,8 +209,12 @@ def test_executor_holds_one_record_per_batch_and_keeps_its_stages():
     assert (counts, set(ex.timer.totals)) == untraced
     assert counts == {"ring put": 7, "ring to pinned": 3, "compute": 3, "sink": 3}
     held = [s for s in P.spans() if s.name == "executor.held"]
-    assert [s.attrs for s in held] == [{"batch": 0, "frames": 3}, {"batch": 1, "frames": 3},
-                                       {"batch": 2, "frames": 1}]
+    assert [{k: v for k, v in s.attrs.items() if k != "early"} for s in held] == [
+        {"batch": 0, "frames": 3}, {"batch": 1, "frames": 3}, {"batch": 2, "frames": 1}]
+    # whether a batch found its successor readable depends on the producer's
+    # pace; the last never does
+    early = [s.attrs["early"] for s in held]
+    assert all(isinstance(e, bool) for e in early) and early[-1] and sum(early) == ex.emitted_early
     by = {}
     for s in P.spans():
         by.setdefault(s.name, []).append(s)
@@ -226,6 +230,34 @@ def test_executor_holds_one_record_per_batch_and_keeps_its_stages():
     for stage, name in (("ring put", "executor.put"), ("ring to pinned", "executor.to_pinned"),
                         ("sink", "executor.sink"), ("compute", "species.program")):
         assert ex.timer.totals[stage] == pytest.approx(sum(s.t1_ns - s.t0_ns for s in by[name]) / 1e9)
+
+
+def test_paced_stream_emits_each_batch_early_and_holds_it_briefly():
+    """A producer that sleeps before each frame after the first: the
+    ``executor.held`` records say ``early`` (at least 4 of 5, the last
+    always), the run counts as many, and each hold is shorter than the producer's gap (a frame held until the
+    next one came would read about the gap)."""
+    gap_s = 0.1
+    frames = [np.random.default_rng(i).integers(0, 256, (16, 24, 3), dtype=np.uint8) for i in range(5)]
+    dog = _dog()
+    dog.visualize(frames[0])  # built untraced
+
+    def paced():
+        for i, f in enumerate(frames):
+            if i:
+                time.sleep(gap_s)
+            yield f
+
+    ex = StreamingExecutor(dog, batch=1, split=False)
+    got = []
+    with _cpu_profile():
+        assert ex.run(paced(), got.append) == len(frames)
+    assert all(np.array_equal(g, dog.visualize(f)[1]) for g, f in zip(got, frames, strict=True))
+    held = [s for s in P.spans() if s.name == "executor.held"]
+    assert [s.attrs["batch"] for s in held] == list(range(5))
+    early = [s.attrs["early"] for s in held]
+    assert sum(early) >= 4 and early[-1] and ex.emitted_early == sum(early)
+    assert all(s.t1_ns - s.t0_ns < gap_s * 1e9 for s in held), [s.t1_ns - s.t0_ns for s in held]
 
 
 def test_trace_reduce_puts_a_gap_inside_a_program_span_under_its_name():
