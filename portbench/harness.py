@@ -59,6 +59,7 @@ class Reading:
     work: dict = field(default_factory=dict)
     trace: dict | None = None
     latencies_ms: list | None = None
+    period_ms: float | None = None  # an open loop's time between due frames
     lateness_ms: list | None = None
     marks: list | None = None  # (seconds into the window, frames done) at each round's end
     kept: list = field(default_factory=list)
@@ -305,6 +306,7 @@ class StreamDriver:
         r.window_s = time.perf_counter() - t0
         r.attempted, r.frames, r.failed = n, len(got), n - len(got)
         r.latencies_ms = [1e3 * (got[i] - due[i]) if i < len(got) else math.inf for i in range(n)]
+        r.period_ms = 1e3 / t["rate_hz"]
         r.lateness_ms = lateness
         r.spans = dict(self.ex.timer.totals)
         self.calls = [(sp, n)]

@@ -43,12 +43,18 @@ TRACE = {"window_s": 10.0, "busy_s": 2.5, "kernel_busy_s": 2.0, "device_ops": []
     ("device.idle_pct", dict(trace=TRACE), 75.0),
     ("device.idle_pct.mstpp", dict(trace=TRACE), 75.0),
     ("device.idle_pct.live", dict(trace=TRACE), 75.0),
+    ("frame_ms_p95.live", dict(latencies_ms=list(range(100, 0, -1))), 95.0),
+    ("frame_on_time_pct", dict(latencies_ms=[1.0, 1e3 / 30, 33.4, 5.0], period_ms=1e3 / 30), 75.0),
+    ("frame_on_time_pct", dict(latencies_ms=[8.0] * 1528 + [40.0, math.inf], period_ms=1e3 / 30),
+     100.0 * 1528 / 1530),
+    ("frame_on_time_pct", dict(latencies_ms=[1.0, 1e3 / 30, 20.0, 5.0], period_ms=1e3 / 60), 50.0),
 ])
 def test_reader_arithmetic(name, kw, want):
     assert read(name, reading(**kw)) == pytest.approx(want)
 
 
-@pytest.mark.parametrize("name", ["fps", "fps.mstpp", "frame_ms_p95", "executor.stage_ms_per_frame.live",
+@pytest.mark.parametrize("name", ["fps", "fps.mstpp", "frame_ms_p95", "frame_on_time_pct",
+                                  "executor.stage_ms_per_frame.live",
                                   "program_ms_per_frame", "program_ms_per_frame.mstpp", "mstpp.mfu_pct",
                                   "kernels_roofline", "kernels_roofline.mstpp", "device.idle_pct",
                                   "device.idle_pct.mstpp", "device.idle_pct.live"])
@@ -69,6 +75,13 @@ def test_p95_is_the_nearest_rank_and_a_missing_frame_misses():
     assert read("frame_ms_p95", reading(latencies_ms=lat)) == 95
     assert read("frame_ms_p95", reading(latencies_ms=lat[:94] + [math.inf] * 6)) == 1e9
     assert compare.nearest_rank([5.0], 95) == 5.0
+
+
+def test_on_time_share_counts_a_missing_frame_as_late():
+    assert read("frame_on_time_pct", reading(latencies_ms=[5.0] * 3 + [math.inf], period_ms=40.0)) == 75.0
+    assert read("frame_on_time_pct", reading(latencies_ms=[math.inf] * 2, period_ms=40.0)) == 0.0
+    # a reading with no period (no open loop) has no deadline to count against
+    assert read("frame_on_time_pct", reading(latencies_ms=[5.0] * 3)) is None
 
 
 def _x(name, cat, ts, dur, tid=1):
@@ -131,9 +144,12 @@ def test_open_loop_times_each_frame_from_its_due_time():
     r = harness.Reading()
     driver.window(0.5, r, False)
     assert r.attempted == r.frames == 15 and r.failed == 0
-    lat = r.latencies_ms
-    # frame 0 waits for the stall and for frame 1 to be read (the emit lag);
-    # the frames due during the stall are late by what is left of it
-    assert lat[0] >= 1e3 * stall
-    assert lat[1] >= 1e3 * stall - 1e3 / 30 - 5
-    assert min(lat[8:-1]) >= 1e3 / 30 - 5 and lat[-1] < 1e3 / 30
+    lat, period = r.latencies_ms, 1e3 / 30
+    assert r.period_ms == pytest.approx(period)
+    # frame 0 leaves when the stall ends, with no wait for a later frame to be
+    # due; the frames due during the stall are late by what is left of it
+    for k in range(6):
+        left = 1e3 * stall - k * period
+        assert left <= lat[k] < left + period, (k, lat)
+    # once the backlog is read, a frame reads its own path, well under a period
+    assert sorted(lat[8:])[3] < period / 4 and max(lat[8:]) < period, lat
