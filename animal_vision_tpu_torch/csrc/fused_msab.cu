@@ -9,7 +9,8 @@
 // - msab_pos_kernel<C>: the first half of _apply_kernel (MSAB pass B),
 //   res1 = x M + b + dw3(gelu(dw3(x Wv))) + x; the second half, the FFN of
 //   res1, is ffn_kernel of fused_mst.cu (ops/fused_msab.py:msab_apply calls
-//   both);
+//   both); msab_pos_masked_kernel<C>, its masked form for MST-L,
+//   res1 = ((x Wv) * gate) M' + b + dw3(gelu(dw3(x Wv))) + x;
 // - up_fuse_kernel<C>: _up_fuse_kernel and _up_fuse_stats_kernel.
 //
 // All frames are NHWC float32, (N, H, W, C), one grid z (or y) index per
@@ -95,6 +96,18 @@
 //   depthwise; V outside the image is 0 because x is;
 // - ((A + bproj) + dw3(T)) + x into a (pixel, 32) tile, stored by
 //   consecutive threads at consecutive addresses of each pixel's run.
+// The masked form (MST-L's mask-guided attention; the same body, a
+// compile-time switch) cannot fold Wv into M: the product is over
+// G = (x Wv) * gate, the gate a (1, H, W, C) map of the level's mask read at
+// stride 0 across the batch, with M' = A Wproj. So V is computed once per
+// chunk as above and feeds both branches: after T, V's R0 rows are scaled
+// by the gate in place, and G[:, chunk] M'[chunk, :] (M' rows as the slab)
+// is added into accumulators that span every output channel (the same 16
+// floats per thread at C = 31, 62 and 124). Each chunk stores
+// (bproj + dw3(T)) + x; after the last chunk the accumulators pass through
+// x's dead space and are added to the tile's output in place. Same tiles
+// and shared memory; one more read of the gate and a second pass over the
+// output tile (4 C bytes in, 8 C through L2).
 //
 // up_fuse_kernel<C> (the decoder level) as one 3xTF32 GEMM per output
 // parity. The transposed convolution is folded into the fuse once per
@@ -568,15 +581,23 @@ struct Pos {
   static constexpr int RL = W1 % 6 == 0 ? 6 : 5;  // T's run of pixels per thread along a row
   static constexpr int XS = N2 * PX, VS = N2 * PV, TS = N1 * PT, WS = CP * PW;
   static constexpr int SMEM_FLOATS = XS + VS + TS + 2 * WS;
+  // the masked product over every output channel: a chunk's (32, CP) slab of
+  // M' rows at pitch PM (8 mod 32); each warp one m-tile and 4 of the CP / 8
+  // n-tiles, MG warps per m-tile
+  static constexpr int PM = CP + 8, MG = CP / 32;
   static_assert(CP % 32 == 0 && N0 % 16 == 0 && NA * AG == 4 && MT0 * AG == kWarps, "tile does not fit the warps");
   static_assert(W1 % RL == 0 && TW % 4 == 0 && N0 * PV <= VS, "runs within rows; the output chunk reuses V's space");
+  static_assert(MT0 * MG == kWarps && 32 * PM <= WS && N0 * PX <= XS, "the masked product's slab and sums fit");
 };
 
-template <int C>
-__global__ void __launch_bounds__(kThreads, 2)
-msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ m,
-                const float* __restrict__ wv, const float* __restrict__ bproj, const float* __restrict__ pos0,
-                const float* __restrict__ pos2, int h, int w) {
+// The pos kernels' body: kMasked selects the masked form (m is then M' and
+// gate the (1, h, w, C) gate; unmasked, gate is not read).
+template <int C, bool kMasked>
+__device__ __forceinline__ void msab_pos_body(const float* __restrict__ x, float* __restrict__ out,
+                                              const float* __restrict__ m, const float* __restrict__ wv,
+                                              const float* __restrict__ bproj, const float* __restrict__ pos0,
+                                              const float* __restrict__ pos2, const float* __restrict__ gate, int h,
+                                              int w) {
   using P = Pos<C>;
   constexpr int TH = P::TH, TW = P::TW, CP = P::CP, W2 = P::W2, N2 = P::N2, W1 = P::W1, N1 = P::N1, N0 = P::N0;
   constexpr int PX = P::PX, PV = P::PV, PT = P::PT, PW = P::PW, RL = P::RL;
@@ -593,15 +614,25 @@ msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const floa
   const float* src = x + static_cast<size_t>(n) * h * w * C;
   const float* mn = m + static_cast<size_t>(n) * C * C;
 
-  // Chunk j's slabs: columns [32 j, 32 j + 32) of Wv and of M, zero beyond C.
+  // Chunk j's slabs: columns [32 j, 32 j + 32) of Wv and of M, zero beyond
+  // C (masked: of Wv alone; the M' rows come by load_mrows).
   auto load_w = [&](int j) {
     constexpr int V = tc::copy_vec(C), UPR = 32 / V;
-    for (int i = tid; i < 2 * CP * UPR; i += kThreads) {
+    for (int i = tid; i < (kMasked ? 1 : 2) * CP * UPR; i += kThreads) {
       const int which = i / (CP * UPR), rem = i % (CP * UPR);
       const int r = rem / UPR, col = (rem % UPR) * V, c = j * 32 + col;
       const float* wsrc = which ? mn : wv;
       const bool ok = r < C && c < C;
       tc::cp_async<4 * V>(s_w + which * P::WS + r * PW + col, ok ? wsrc + static_cast<size_t>(r) * C + c : wsrc, ok);
+    }
+  };
+  // Masked: chunk j's slab of M' rows [32 j, 32 j + 32), every column, zero beyond C.
+  auto load_mrows = [&](int j) {
+    constexpr int V = tc::copy_vec(C), UPR = CP / V;
+    for (int i = tid; i < 32 * UPR; i += kThreads) {
+      const int r = i / UPR, col = (i % UPR) * V, row = j * 32 + r;
+      const bool ok = row < C && col < C;
+      tc::cp_async<4 * V>(s_w + P::WS + r * P::PM + col, ok ? mn + static_cast<size_t>(row) * C + col : mn, ok);
     }
   };
   // x over R2 (zero outside the image and beyond C), with chunk 0's slabs.
@@ -615,6 +646,7 @@ msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const floa
     }
   }
   load_w(0);
+  if constexpr (kMasked) load_mrows(0);
   tc::cp_async_commit();
 
   // The R0 product's rows of this lane: R0 pixel r is R2 pixel (r / TW + 2, r % TW + 2).
@@ -622,6 +654,10 @@ msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const floa
   const int ra = am * 16 + g, rb = ra + 8;
   const float* xa = s_x + ((ra / TW + 2) * W2 + ra % TW + 2) * PX;
   const float* xb = s_x + ((rb / TW + 2) * W2 + rb % TW + 2) * PX;
+  // Masked: this lane's sums of the product over every output channel, its
+  // rows R0 pixels rma and rma + 8 and its n-tiles mn0..mn0 + 3.
+  float macc[kMasked ? 4 : 1][4] = {};
+  const int rma = (warp / P::MG) * 16 + g, mn0 = (warp % P::MG) * 4;
 
   for (int j = 0; j < P::NCHUNK; ++j) {
     tc::cp_async_wait<0>();
@@ -658,25 +694,28 @@ msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const floa
         if (r1 < N2) *reinterpret_cast<float2*>(s_v + r1 * PV + col) = make_float2(d[jn][2], d[jn][3]);
       }
     }
-    // 2. A = x M[:, chunk] over R0, held in fragments until step 4.
+    // 2. A = x M[:, chunk] over R0, held in fragments until step 4 (not in
+    //    the masked form: its product waits for the gate, steps 3b-3c).
     float acc[P::NA][4] = {};
+    if constexpr (!kMasked) {
 #pragma unroll
-    for (int s0 = 0; s0 < CP; s0 += 32) {
-      float sl[P::NA][4] = {};
+      for (int s0 = 0; s0 < CP; s0 += 32) {
+        float sl[P::NA][4] = {};
 #pragma unroll
-      for (int kk = s0; kk < s0 + 32; kk += 8) {
-        const tc::FragA a = tc::load_a(xa + kk, xb + kk, t);
+        for (int kk = s0; kk < s0 + 32; kk += 8) {
+          const tc::FragA a = tc::load_a(xa + kk, xb + kk, t);
 #pragma unroll
-        for (int jn = 0; jn < P::NA; ++jn) tc::mma3(sl[jn], a, tc::load_b(smc + kk * PW + (an + jn) * 8, PW, g, t));
+          for (int jn = 0; jn < P::NA; ++jn) tc::mma3(sl[jn], a, tc::load_b(smc + kk * PW + (an + jn) * 8, PW, g, t));
+        }
+#pragma unroll
+        for (int jn = 0; jn < P::NA; ++jn)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[jn][q] += sl[jn][q];
       }
-#pragma unroll
-      for (int jn = 0; jn < P::NA; ++jn)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[jn][q] += sl[jn][q];
     }
     __syncthreads();  // V is complete; every warp is done with the slabs
     if (j + 1 < P::NCHUNK) {  // the next chunk's slabs load during steps 3-5
-      load_w(j + 1);
+      load_w(j + 1);  // masked: Wv alone, M' rows after step 3c
       tc::cp_async_commit();
     }
 
@@ -711,16 +750,57 @@ msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const floa
           s_t[(ly * W1 + lx + jj) * PT + c] = inside(y0 - 1 + ly, x0 - 1 + lx + jj) ? gelu(v[jj]) : 0.f;
       }
     }
-    __syncthreads();  // T is complete; V is dead
+    __syncthreads();  // T is complete; V is dead (but for the masked form's R0 rows)
+
+    if constexpr (kMasked) {
+      // 3b. G = V * gate over R0, in V's R0 rows (zero outside the image),
+      //     a warp per pixel and a lane per channel.
+      {
+        const int c = lane, ch = j * 32 + c;
+        for (int p = warp; p < N0; p += kWarps) {
+          const int gy = y0 + p / TW, gx = x0 + p % TW;
+          float* vv = s_v + ((p / TW + 2) * W2 + p % TW + 2) * PV + c;
+          *vv = ch < C && gy < h && gx < w ? *vv * __ldg(gate + (static_cast<size_t>(gy) * w + gx) * C + ch) : 0.f;
+        }
+      }
+      __syncthreads();
+      // 3c. Sums += G[:, chunk] M'[chunk, :], one 32-deep slice.
+      {
+        const float* smr = s_w + P::WS;
+        const int rmb = rma + 8;
+        const float* ga = s_v + ((rma / TW + 2) * W2 + rma % TW + 2) * PV;
+        const float* gb = s_v + ((rmb / TW + 2) * W2 + rmb % TW + 2) * PV;
+        float sl[4][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 32; kk += 8) {
+          const tc::FragA a = tc::load_a(ga + kk, gb + kk, t);
+#pragma unroll
+          for (int jn = 0; jn < 4; ++jn)
+            tc::mma3(sl[jn], a, tc::load_b(smr + kk * P::PM + (mn0 + jn) * 8, P::PM, g, t));
+        }
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) macc[jn][q] += sl[jn][q];
+      }
+      __syncthreads();  // every warp is done with G and the M' slab
+      if (j + 1 < P::NCHUNK) {
+        load_mrows(j + 1);
+        tc::cp_async_commit();
+      }
+    }
 
     // 4. The output chunk over R0 into V's space: A, then
-    //    ((A + bproj) + dw3(T, pos2)) + x, a thread per (channel, run of 4).
+    //    ((A + bproj) + dw3(T, pos2)) + x, a thread per (channel, run of 4);
+    //    masked, (bproj + dw3(T, pos2)) + x.
     float* s_o = s_v;
+    if constexpr (!kMasked) {
 #pragma unroll
-    for (int jn = 0; jn < P::NA; ++jn) {
-      const int col = (an + jn) * 8 + 2 * t;
-      *reinterpret_cast<float2*>(s_o + ra * PV + col) = make_float2(acc[jn][0], acc[jn][1]);
-      *reinterpret_cast<float2*>(s_o + rb * PV + col) = make_float2(acc[jn][2], acc[jn][3]);
+      for (int jn = 0; jn < P::NA; ++jn) {
+        const int col = (an + jn) * 8 + 2 * t;
+        *reinterpret_cast<float2*>(s_o + ra * PV + col) = make_float2(acc[jn][0], acc[jn][1]);
+        *reinterpret_cast<float2*>(s_o + rb * PV + col) = make_float2(acc[jn][2], acc[jn][3]);
+      }
     }
     __syncthreads();
     {
@@ -749,7 +829,11 @@ msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const floa
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           float* o = s_o + (ly * TW + lx + jj) * PV + c;
-          *o = ((*o + bias) + v[jj]) + s_x[((ly + 2) * W2 + lx + jj + 2) * PX + ch];
+          if constexpr (kMasked) {
+            *o = (bias + v[jj]) + s_x[((ly + 2) * W2 + lx + jj + 2) * PX + ch];
+          } else {
+            *o = ((*o + bias) + v[jj]) + s_x[((ly + 2) * W2 + lx + jj + 2) * PX + ch];
+          }
         }
       }
     }
@@ -765,18 +849,64 @@ msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const floa
       }
     }
   }
+
+  if constexpr (kMasked) {
+    // 6. out += G M' over the tile: the sums through x's space (dead since
+    //    the last chunk's step 4), each tile row read, added and stored by
+    //    consecutive threads.
+    float* s_a = s_x;
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      const int col = (mn0 + jn) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(s_a + rma * PX + col) = make_float2(macc[jn][0], macc[jn][1]);
+      *reinterpret_cast<float2*>(s_a + (rma + 8) * PX + col) = make_float2(macc[jn][2], macc[jn][3]);
+    }
+    __syncthreads();  // the sums, and every chunk's stores to out, are done
+    const int cols = min(TW, w - x0);
+    for (int ly = 0; ly < TH && y0 + ly < h; ++ly) {
+      float* row = out + ((static_cast<size_t>(n) * h + y0 + ly) * w + x0) * C;
+      for (int e = tid; e < cols * C; e += kThreads) {
+        const int p = e / C, c = e - p * C;
+        row[e] += s_a[(ly * TW + p) * PX + c];
+      }
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+msab_pos_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ m,
+                const float* __restrict__ wv, const float* __restrict__ bproj, const float* __restrict__ pos0,
+                const float* __restrict__ pos2, int h, int w) {
+  msab_pos_body<C, false>(x, out, m, wv, bproj, pos0, pos2, nullptr, h, w);
+}
+
+// The masked form: m is M' (n, C, C), gate (1, h, w, C).
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+msab_pos_masked_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ m,
+                       const float* __restrict__ wv, const float* __restrict__ bproj, const float* __restrict__ pos0,
+                       const float* __restrict__ pos2, const float* __restrict__ gate, int h, int w) {
+  msab_pos_body<C, true>(x, out, m, wv, bproj, pos0, pos2, gate, h, w);
 }
 
 template <int C>
 int launch_pos(const float* x, float* out, const float* m, const float* wv, const float* bproj, const float* pos0,
-               const float* pos2, int n, int h, int w, int th, int tw, cudaStream_t stream) {
+               const float* pos2, const float* gate, int n, int h, int w, int th, int tw, cudaStream_t stream) {
   using P = Pos<C>;
   if (th != P::TH || tw != P::TW) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * P::SMEM_FLOATS;
+  const dim3 grid(cdiv(w, P::TW), cdiv(h, P::TH), n);
+  if (gate != nullptr) {
+    cudaError_t err = cudaFuncSetAttribute(msab_pos_masked_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    msab_pos_masked_kernel<C><<<grid, kThreads, smem, stream>>>(x, out, m, wv, bproj, pos0, pos2, gate, h, w);
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaError_t err = cudaFuncSetAttribute(msab_pos_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(cdiv(w, P::TW), cdiv(h, P::TH), n);
   msab_pos_kernel<C><<<grid, kThreads, smem, stream>>>(x, out, m, wv, bproj, pos0, pos2, h, w);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1021,9 +1151,10 @@ int av_msab_stats(const void* x, const void* wq, const void* wk, void* part, voi
 
 // pos: x/out (n, h, w, c), m (n, c, c), wv (c, c), bproj (c), pos0/pos2
 // (3, 3, c); x, m and wv start on 4 * copy_vec(c) bytes (16 at c = 124, 8
-// at 62); th x tw must be the tile built for c (PosTile).
+// at 62); th x tw must be the tile built for c (PosTile). With a gate
+// (1, h, w, c) the masked form runs (m is then M'); null, the unmasked one.
 int av_msab_pos(const void* x, void* out, const void* m, const void* wv, const void* bproj, const void* pos0,
-                const void* pos2, int n, int h, int w, int c, int th, int tw, void* stream) {
+                const void* pos2, const void* gate, int n, int h, int w, int c, int th, int tw, void* stream) {
   if (!frames_ok(n, h, w)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* xf = static_cast<const float*>(x);
@@ -1033,9 +1164,10 @@ int av_msab_pos(const void* x, void* out, const void* m, const void* wv, const v
   const auto* bf = static_cast<const float*>(bproj);
   const auto* p0 = static_cast<const float*>(pos0);
   const auto* p2 = static_cast<const float*>(pos2);
-  if (c == 31) return launch_pos<31>(xf, of, mf, vf, bf, p0, p2, n, h, w, th, tw, s);
-  if (c == 62) return launch_pos<62>(xf, of, mf, vf, bf, p0, p2, n, h, w, th, tw, s);
-  if (c == 124) return launch_pos<124>(xf, of, mf, vf, bf, p0, p2, n, h, w, th, tw, s);
+  const auto* gf = static_cast<const float*>(gate);
+  if (c == 31) return launch_pos<31>(xf, of, mf, vf, bf, p0, p2, gf, n, h, w, th, tw, s);
+  if (c == 62) return launch_pos<62>(xf, of, mf, vf, bf, p0, p2, gf, n, h, w, th, tw, s);
+  if (c == 124) return launch_pos<124>(xf, of, mf, vf, bf, p0, p2, gf, n, h, w, th, tw, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -25,50 +25,42 @@ State layout: the reference ``MST.py`` names and shapes (what the JAX
 (out, dy, dx), as ``mst_plus_plus.UpConv`` keeps it. ``from_jax_params``
 carries a JAX ``MSTModel`` param tree across exactly.
 
-The FFN of every block is ``ops/fused_mst.py:ffn`` (the ``ffn_kernel`` on
-CUDA, 27 launches per forward) or, on the CPU or with ``plain=True``, its
-plain version. Attention, masks, embeddings and convolutions are plain
-PyTorch on the frames' device (``F.conv2d`` with TF32 off, ``torch.matmul``,
-softmax), as the JAX package leaves them to XLA outside any Pallas kernel.
+Every block's attention and FFN run on the MSAB functions of
+``ops/fused_msab.py``, as MST++'s do: ``attn_stats`` (pass A: q, k, the
+head-diagonal Gram blocks and the norms), ``attn_matrix`` without the Wv
+fold (M' = A Wproj: the gate sits between x Wv and the product), then
+``msab_apply`` with the block's gate: the masked ``msab_pos`` and the FFN.
+On CUDA that is 27 ``attn_stats_kernel``, 27 ``msab_masked_kernel`` and 27
+``ffn`` launches per forward; on the CPU, or with ``plain=True``, their
+plain versions. The mask branch (``MaskGuidedMechanism``), the embeddings,
+the down- and up-convolutions and the mapping stay plain PyTorch on the
+frames' device (``F.conv2d`` with TF32 off).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from animal_vision_tpu_torch.models.mst_plus_plus import (
-    PreNorm,
+    MSAB,
+    MSMSA,
     UpConv,
-    _dense,
-    _depthwise,
     _jax_conv_w,
     _jax_t,
     _reflect_index,
-    _t,
     jax_msab_into,
     jax_up_into,
 )
-from animal_vision_tpu_torch.ops import fused_mst as K
+from animal_vision_tpu_torch.ops import fused_msab as K
+from animal_vision_tpu_torch.ops.fused_msab import MsabWeights
 
 DIM = 31
 STAGE = 2
 NUM_BLOCKS = (4, 7, 5)
-
-
-class FfnWeights(NamedTuple):
-    """One block's FFN weights in ``ops/fused_mst.py``'s layouts."""
-
-    ln_w: torch.Tensor  # (C,)
-    ln_b: torch.Tensor  # (C,)
-    w0: torch.Tensor  # (C, 4C)
-    dw: torch.Tensor  # (3, 3, 4C)
-    w4: torch.Tensor  # (4C, C)
 
 
 class MaskGuidedMechanism(nn.Module):
@@ -84,80 +76,31 @@ class MaskGuidedMechanism(nn.Module):
         return m * torch.sigmoid(g) + m
 
 
-class MaskedMSMSA(nn.Module):
-    """Spectral-wise multi-head self-attention guided by the mask."""
+class MaskedMSMSA(MSMSA):
+    """Spectral-wise multi-head self-attention guided by the mask: MST++'s
+    parameters (``MSMSA``) and the block's ``MaskGuidedMechanism``."""
 
     def __init__(self, dim: int, dim_head: int, heads: int):
-        super().__init__()
-        inner = dim_head * heads
-        self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(dim, inner, bias=False)
-        self.to_v = nn.Linear(dim, inner, bias=False)
-        self.rescale = nn.Parameter(torch.ones(heads, 1, 1))
-        self.proj = nn.Linear(inner, dim, bias=True)
-        self.pos_emb = nn.Sequential(
-            nn.Conv2d(dim, dim, 3, 1, 1, bias=False, groups=dim),
-            nn.GELU(),
-            nn.Conv2d(dim, dim, 3, 1, 1, bias=False, groups=dim),
-        )
+        super().__init__(dim, dim_head, heads)
         self.mm = MaskGuidedMechanism(dim)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x (N, H, W, C); mask (1, H, W, C), the level's mask of frame 0."""
-        n, h, w, c = x.shape
-        heads, d = self.heads, self.dim_head
-        flat = x.reshape(n, h * w, c)
-        q, k, v = F.linear(flat, self.to_q.weight), F.linear(flat, self.to_k.weight), F.linear(flat, self.to_v.weight)
-        vm = v * self.mm(mask).reshape(1, h * w, c)
-        # per head, attn[o, e] = softmax_e(k_o . q_e / (|k_o| |q_e|) rescale)
-        # over the pixels, then out[p, o] = sum_e attn[o, e] vm[p, e]
-        g = _head_blocks(_gram(k, q, n, h, w, c), heads, d)
-        qn = torch.clamp(torch.sqrt((q * q).sum(dim=1)), min=1e-12).view(n, heads, 1, d)
-        kn = torch.clamp(torch.sqrt((k * k).sum(dim=1)), min=1e-12).view(n, heads, d, 1)
-        attn = torch.softmax(g / (kn * qn) * self.rescale.view(1, heads, 1, 1), dim=-1)
-        out = torch.matmul(vm.view(n, h * w, heads, d).transpose(1, 2), attn.transpose(-1, -2))
-        out_c = F.linear(out.transpose(1, 2).reshape(n, h * w, c), self.proj.weight, self.proj.bias)
-        v_img = v.view(n, h, w, c)
-        pos = _conv(F.gelu(_conv(v_img, self.pos_emb[0])), self.pos_emb[2])
-        return out_c.view(n, h, w, c) + pos
 
+class MaskedMSAB(MSAB):
+    """``num_blocks`` x (masked attention + residual, prenorm FFN +
+    residual): MST++'s block weights (``MSAB.weights``) with each block's
+    gate from the level's mask."""
 
-def _gram(k: torch.Tensor, q: torch.Tensor, n: int, h: int, w: int, c: int) -> torch.Tensor:
-    """(N, C, C) k^T q over each frame's pixels, as one product per image
-    row summed over the rows: cuBLAS runs a single product with a
-    million-long inner dimension and a 31 x 31 output on a few blocks."""
-    rows = torch.bmm(k.view(n * h, w, c).transpose(1, 2), q.view(n * h, w, c))
-    return rows.view(n, h, c, c).sum(dim=1)
+    attention = MaskedMSMSA
 
-
-def _head_blocks(g: torch.Tensor, heads: int, d: int) -> torch.Tensor:
-    """(N, heads, d, d) diagonal blocks of an (N, C, C) Gram matrix."""
-    return torch.stack([g[:, i * d:(i + 1) * d, i * d:(i + 1) * d] for i in range(heads)], dim=1)
-
-
-class MaskedMSAB(nn.Module):
-    """``num_blocks`` x (masked attention + residual, prenorm FFN + residual)."""
-
-    def __init__(self, dim: int, dim_head: int, heads: int, num_blocks: int):
-        super().__init__()
-        self.blocks = nn.ModuleList(
-            nn.ModuleList([MaskedMSMSA(dim, dim_head, heads), PreNorm(dim)]) for _ in range(num_blocks)
-        )
-
-    def ffn_weights(self) -> list[FfnWeights]:
-        out = []
-        for _, pre in self.blocks:
-            ff = pre.fn.net
-            out.append(FfnWeights(_t(pre.norm.weight), _t(pre.norm.bias), _dense(ff[0].weight[:, :, 0, 0]),
-                                  _depthwise(ff[2].weight), _dense(ff[4].weight[:, :, 0, 0])))
-        return out
-
-    def run(self, x: torch.Tensor, mask: torch.Tensor, ffn_weights: list[FfnWeights], plain: bool) -> torch.Tensor:
-        ffn = K.ffn_plain if plain else K.ffn
-        for (attn, _), fw in zip(self.blocks, ffn_weights):
-            x = attn(x, mask) + x
-            x = ffn(x.contiguous(), *fw)
+    def run(self, x: torch.Tensor, mask: torch.Tensor, weights: list[MsabWeights], plain: bool) -> torch.Tensor:
+        """The level's blocks on (N, H, W, C) ``x`` with the level's
+        (1, H, W, C) mask of frame 0."""
+        stats = K.attn_stats_plain if plain else K.attn_stats
+        apply = K.msab_apply_plain if plain else K.msab_apply
+        for (attn, _), blk in zip(self.blocks, weights):
+            gate = attn.mm(mask)
+            m = K.attn_matrix(*stats(x, blk.wq, blk.wk, blk.heads), blk.rescale, None, blk.wproj)
+            x = apply(x, m, blk, gate)
         return x
 
 
@@ -222,23 +165,23 @@ class MSTModel(nn.Module):
         self._prepared = {}
         return super().load_state_dict(state_dict, strict=strict, assign=assign)
 
-    def ffn_weights(self, device: torch.device) -> dict:
-        """Every block's FFN weights in the kernel's layouts, made once per
+    def weights(self, device: torch.device) -> dict:
+        """Every block's MSAB weights in the kernels' layouts, made once per
         device (again after ``load_state_dict`` or a move)."""
         key = str(device)
         if key not in self._prepared:
             msabs = [enc[0] for enc in self.encoder_layers] + [self.bottleneck] + [dec[2] for dec in self.decoder_layers]
-            self._prepared[key] = {id(m): m.ffn_weights() for m in msabs}
+            self._prepared[key] = {id(m): m.weights() for m in msabs}
         return self._prepared[key]
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, H, W, 31). ``plain`` takes the FFN's plain
-        version on any device (the CPU always does)."""
+        """(N, H, W, 3) -> (N, H, W, 31). ``plain`` takes the MSAB
+        functions' plain versions on any device (the CPU always does)."""
         if x.dim() != 4 or x.shape[-1] != 3:
             raise ValueError(f"MSTModel takes (N, H, W, 3) frames, got {tuple(x.shape)}")
         if x.device != self.mapping.weight.device:
             raise ValueError(f"frames on {x.device}, model on {self.mapping.weight.device}")
-        fw = self.ffn_weights(x.device)
+        fw = self.weights(x.device)
         n, h, w, _ = x.shape
         hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
         x = x.to(torch.float32)

@@ -89,10 +89,13 @@ class PreNorm(nn.Module):
 
 
 class MSAB(nn.Module):
+    #: the blocks' attention module (MST-L's ``MaskedMSAB`` takes its masked one)
+    attention = MSMSA
+
     def __init__(self, dim: int, dim_head: int, heads: int, num_blocks: int):
         super().__init__()
         self.blocks = nn.ModuleList(
-            nn.ModuleList([MSMSA(dim, dim_head, heads), PreNorm(dim)]) for _ in range(num_blocks)
+            nn.ModuleList([self.attention(dim, dim_head, heads), PreNorm(dim)]) for _ in range(num_blocks)
         )
 
     def weights(self, live: bool = False) -> list[MsabWeights]:

@@ -12,6 +12,8 @@ serves (``models/zoo.py``).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -19,9 +21,67 @@ from animal_vision_tpu_torch.core import color
 from animal_vision_tpu_torch.models.mst import MSTModel
 from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus, load_state
 from animal_vision_tpu_torch.models.zoo import model_generator
+from animal_vision_tpu_torch.ops import fused_msab, fused_mst
+from animal_vision_tpu_torch.utils.profiling import span
 
 #: the zoo's band grid (31 bands, 400-700 nm, the ARAD_1K convention)
 MST_LAMBDAS = np.linspace(400.0, 700.0, 31, dtype=np.float32)
+#: the zoo's method names of the two MST models, for the ``model.forward``
+#: span (any other module is named by its class)
+_METHODS = {MSTModel: "mst", MSTPlusPlus: "mst_plus_plus"}
+#: the launch counters of the kernels an MST-L forward runs
+_COUNTERS = (fused_msab.LAUNCHES, fused_mst.LAUNCHES)
+
+
+@dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    y: torch.Tensor
+    weights: dict  # the prepared weights the graph reads, kept alive with it
+    launches: list[dict]  # per counter, the launches one replay makes
+
+
+class _FrameGraphs:
+    """MST-L's forward of one frame on the card, replayed from a CUDA graph
+    per frame shape. A forward is about 1500 host operations (27 blocks of
+    mask branch, stats, matrix, masked pos and FFN launches), so dispatch
+    took longer than the card's work; a replay launches the same kernels
+    in one call. The first frame of a shape runs the module (which builds
+    and loads the kernels, prepares the weights and lets cuDNN pick its
+    algorithms), then the forward is captured; the capture runs nothing,
+    and each replay adds the captured launches to the counters. A change
+    of the prepared weights (``load_state_dict``, a move) captures anew."""
+
+    def __init__(self, module: MSTModel):
+        self.module = module
+        self.graphs: dict = {}
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        fw = self.module.weights(x.device)
+        key = (tuple(x.shape), x.dtype, x.device)
+        g = self.graphs.get(key)
+        if g is None or g.weights is not fw:
+            y = self.module(x)
+            self.graphs[key] = self._capture(x, fw)
+            return y
+        g.x.copy_(x)
+        g.graph.replay()
+        for counter, n in zip(_COUNTERS, g.launches):
+            for k, v in n.items():
+                counter[k] += v
+        return g.y.clone()
+
+    def _capture(self, x: torch.Tensor, fw: dict) -> _Graph:
+        before = [dict(c) for c in _COUNTERS]
+        static_x = x.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            static_y = self.module(static_x)
+        launches = [{k: c[k] - b[k] for k in c} for c, b in zip(_COUNTERS, before)]
+        for c, b in zip(_COUNTERS, before):
+            c.update(b)
+        return _Graph(graph, static_x, static_y, fw, launches)
 
 
 def make_mst_hsi_provider(module: torch.nn.Module | None = None, pretrained_path=None,
@@ -45,7 +105,11 @@ def make_mst_hsi_provider(module: torch.nn.Module | None = None, pretrained_path
     batch of four 272x480 frames it took an FFT path six times slower per
     frame, so SGN runs its batch frame by frame (``models/sgn.py``).
     ``plain`` runs the plain versions of the port's kernels in MST++ and
-    MST-L; the other methods are plain PyTorch throughout."""
+    MST-L; the other methods are plain PyTorch throughout. On the card
+    (not ``plain``), MST-L replays a CUDA graph per frame shape
+    (``_FrameGraphs``). Each forward of the module is a ``model.forward``
+    span (method, frames, h, w): one per frame for MST-L, one per batch
+    for the others."""
     if input_encoding is None:
         input_encoding = "srgb" if pretrained_path is not None else "linear"
     if input_encoding not in ("linear", "srgb"):
@@ -55,6 +119,14 @@ def make_mst_hsi_provider(module: torch.nn.Module | None = None, pretrained_path
     elif pretrained_path is not None:
         module.load_state_dict(load_state(pretrained_path))
     per_frame = isinstance(module, MSTModel)
+    graphs = _FrameGraphs(module) if per_frame else None
+    name = _METHODS.get(type(module), type(module).__name__)
+
+    def forward(x: torch.Tensor, plain: bool) -> torch.Tensor:
+        with span("model.forward", method=name, frames=x.shape[0], h=x.shape[1], w=x.shape[2]):
+            if graphs is not None and x.is_cuda and not plain:
+                return graphs(x)
+            return module(x, plain=plain)
 
     def provider(frames: torch.Tensor, plain: bool = False) -> torch.Tensor:
         x = torch.clamp(frames.to(torch.float32), 0.0, 1.0)
@@ -63,9 +135,9 @@ def make_mst_hsi_provider(module: torch.nn.Module | None = None, pretrained_path
         x = x.reshape(-1, *x.shape[-3:])
         with torch.no_grad():
             if per_frame:
-                cube = torch.cat([module(x[i:i + 1], plain=plain) for i in range(x.shape[0])])
+                cube = torch.cat([forward(x[i:i + 1], plain) for i in range(x.shape[0])])
             else:
-                cube = module(x, plain=plain)
+                cube = forward(x, plain)
         return torch.clamp(cube, min=0.0).reshape(*frames.shape[:-1], cube.shape[-1])
 
     return provider

@@ -25,7 +25,11 @@ carry every convolution and MSAB block of ``models/mst_plus_plus.py`` on
   kernel) takes LayerNorm and the FFN (1x1 C -> 4C, GELU, depthwise 3x3,
   GELU, 1x1 4C -> C) plus res1. Together they replace ``_apply_kernel``.
   Splitting costs one device-memory round trip of res1 and keeps the
-  pos kernel's halo at 2 pixels;
+  pos kernel's halo at 2 pixels. With a ``gate`` (MST-L's mask-guided
+  attention, ``models/mst.py``) ``msab_pos`` takes its masked form,
+  res1 = ((x Wv) * gate) M' + b + dw3(gelu(dw3(x Wv))) + x with
+  M' = A Wproj, the same kernel body compiled with the mask switch on
+  (``msab_pos_masked_kernel``);
 - ``up_fuse``: the decoder's 2x2 stride-2 transposed convolution (one bias
   per (dy, dx, out)), depth-to-space and the 1x1 fuse over [up | skip], as
   one 3xTF32 product per output parity with the transposed convolution
@@ -37,7 +41,8 @@ carry every convolution and MSAB block of ``models/mst_plus_plus.py`` on
 Between pass A and pass B, ``attn_matrix`` (the counterpart of the XLA
 glue ``_attn_blockdiag``) folds the stats into M = Wv A Wproj with plain
 PyTorch on the frames' device: normalize, rescale, softmax, block-diagonal
-A. It copies nothing to the host.
+A (without Wv, M' = A Wproj, for the masked form). It copies nothing to
+the host.
 
 On a CUDA tensor each wrapper launches its CUDA C++ kernel from
 ``csrc/fused_msab.cu`` or raises; on a CPU tensor it takes its plain
@@ -62,8 +67,10 @@ import torch.nn.functional as F
 from animal_vision_tpu_torch.core import linalg
 from animal_vision_tpu_torch.ops import _build
 
-#: Kernel launches, one per wrapper call (plain-version calls are not counted).
-LAUNCHES = {"conv_kernel": 0, "attn_stats_kernel": 0, "msab_apply_kernel": 0, "up_fuse_kernel": 0}
+#: Kernel launches, one per wrapper call (plain-version calls are not counted);
+#: ``msab_masked_kernel`` counts the masked form of ``msab_pos``.
+LAUNCHES = {"conv_kernel": 0, "attn_stats_kernel": 0, "msab_apply_kernel": 0, "up_fuse_kernel": 0,
+            "msab_masked_kernel": 0}
 
 #: Blocks per frame and head of the stats kernel's first stage: the partial
 #: sums a frame is reduced from, in a fixed order (a function of the pixel
@@ -178,7 +185,7 @@ def _lib() -> ctypes.CDLL:
     if lib.av_msab_conv.argtypes is None:
         lib.av_msab_conv.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.av_msab_stats.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-        lib.av_msab_pos.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        lib.av_msab_pos.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.av_msab_up_fuse.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.av_msab_conv_smem.argtypes = [_I, _I, _I]
         lib.av_msab_smem.argtypes = [_I, _I]
@@ -266,22 +273,26 @@ def attn_stats_plain(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, heads:
     return blocks, (q * q).sum(dim=1), (k * k).sum(dim=1)
 
 
-def msab_pos_plain(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
-    """Plain version of ``msab_pos``."""
-    _check_pos(x, m, blk)
+def msab_pos_plain(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights, gate: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """Plain version of ``msab_pos``; with ``gate``, of its masked form."""
+    _check_pos(x, m, blk, gate)
     n, h, w, c = x.shape
-    pos = _dw3(F.gelu(_dw3(linalg.frame_matmul(x, blk.wv), blk.pos0)), blk.pos2)
-    att = torch.bmm(x.reshape(n, h * w, c), m).reshape(x.shape)
+    v = linalg.frame_matmul(x, blk.wv)
+    pos = _dw3(F.gelu(_dw3(v, blk.pos0)), blk.pos2)
+    src = x if gate is None else v * gate
+    att = torch.bmm(src.reshape(n, h * w, c), m).reshape(x.shape)
     return att + blk.bproj + pos + x
 
 
-def msab_apply_plain(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
+def msab_apply_plain(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights, gate: torch.Tensor | None = None
+                     ) -> torch.Tensor:
     """Plain version of ``msab_apply``: ``fused_mst.ffn_plain`` of
     ``msab_pos_plain``."""
     from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
 
-    _check_apply(x, m, blk)
-    return fused_mst.ffn_plain(msab_pos_plain(x, m, blk), blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
+    _check_apply(x, m, blk, gate)
+    return fused_mst.ffn_plain(msab_pos_plain(x, m, blk, gate), blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
 
 
 def up_fuse_plain(fea: torch.Tensor, skip: torch.Tensor, uw: UpFuseWeights) -> torch.Tensor:
@@ -302,17 +313,19 @@ def up_fuse_plain(fea: torch.Tensor, skip: torch.Tensor, uw: UpFuseWeights) -> t
 
 
 def attn_matrix(g: torch.Tensor, sq: torch.Tensor, sk: torch.Tensor, rescale: torch.Tensor,
-                wv: torch.Tensor, wproj: torch.Tensor) -> torch.Tensor:
+                wv: torch.Tensor | None, wproj: torch.Tensor) -> torch.Tensor:
     """(N, C, C) M = Wv A Wproj from the stats of ``attn_stats``: the Gram
     blocks divided by the norms (clamped at 1e-12), times each head's
-    rescale, softmax over the q channels; A[h d + e, h d + o] = attn[h, o, e]."""
+    rescale, softmax over the q channels; A[h d + e, h d + o] = attn[h, o, e].
+    With ``wv`` None, M' = A Wproj: the masked form's matrix, which the gated
+    x Wv multiplies."""
     n, heads, d, _ = g.shape
     qn = torch.clamp(torch.sqrt(sq), min=1e-12).reshape(n, heads, 1, d)
     kn = torch.clamp(torch.sqrt(sk), min=1e-12).reshape(n, heads, d, 1)
     attn = torch.softmax(g / (kn * qn) * rescale.reshape(1, heads, 1, 1), dim=-1)  # (n, h, o, e)
     eye = torch.eye(heads, dtype=g.dtype, device=g.device)
     a = torch.einsum("nhoe,hk->nheko", attn, eye).reshape(n, heads * d, heads * d)
-    return torch.matmul(torch.matmul(wv, a), wproj)
+    return torch.matmul(a if wv is None else torch.matmul(wv, a), wproj)
 
 
 # ---------------------------------------------------------------------------
@@ -421,18 +434,20 @@ def attn_stats(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, heads: int):
     return g, out[:, c * HEAD_DIM: c * HEAD_DIM + c], out[:, c * HEAD_DIM + c:]
 
 
-def _check_pos(x, m, blk: MsabWeights) -> None:
+def _check_pos(x, m, blk: MsabWeights, gate=None) -> None:
     _frames(x, "msab_pos", MSAB_CHANNELS)
-    n, c = x.shape[0], x.shape[-1]
+    n, h, w, c = x.shape
     shapes = tuple(tuple(t.shape) for t in (m, blk.wv, blk.bproj, blk.pos0, blk.pos2))
     if shapes != ((n, c, c), (c, c), (c,), (3, 3, c), (3, 3, c)):
         raise ValueError(f"msab_pos: C {c} takes M (N, C, C), wv (C, C), bproj (C,), pos0/pos2 (3, 3, C); "
                          f"got {shapes}")
-    _same_device(x, "msab_pos", m, blk.wv, blk.bproj, blk.pos0, blk.pos2)
+    if gate is not None and tuple(gate.shape) != (1, h, w, c):
+        raise ValueError(f"msab_pos: the gate is (1, H, W, C) = {(1, h, w, c)}, got {tuple(gate.shape)}")
+    _same_device(x, "msab_pos", m, blk.wv, blk.bproj, blk.pos0, blk.pos2, gate)
 
 
-def _check_apply(x, m, blk: MsabWeights) -> None:
-    _check_pos(x, m, blk)
+def _check_apply(x, m, blk: MsabWeights, gate=None) -> None:
+    _check_pos(x, m, blk, gate)
     c = x.shape[-1]
     if tuple(blk.w0.shape) != (c, 4 * c) or tuple(blk.w4.shape) != (4 * c, c):
         raise ValueError(f"msab_apply: C {c}, w0 {tuple(blk.w0.shape)}, w4 {tuple(blk.w4.shape)}")
@@ -470,17 +485,24 @@ def pos_tile_for(c: int, limit: int) -> tuple[int, int]:
     return th, tw
 
 
-def msab_pos(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
+def msab_pos(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights, gate: torch.Tensor | None = None
+             ) -> torch.Tensor:
     """The first half of MSAB pass B on (N, H, W, C) float32 frames with the
     per-frame (N, C, C) attention matrix ``m`` of ``attn_matrix``:
     res1 = x m + bproj + dw3(gelu(dw3(x Wv, pos0)), pos2) + x; each
     depthwise 3x3 zero-pads its own input. Counted as
-    ``LAUNCHES["msab_apply_kernel"]``."""
+    ``LAUNCHES["msab_apply_kernel"]``.
+
+    With ``gate``, a (1, H, W, C) map that every frame of the batch takes,
+    the masked form: ``m`` is M' = A Wproj (``attn_matrix`` without Wv) and
+    res1 = ((x Wv) * gate) m + bproj + dw3(gelu(dw3(x Wv, pos0)), pos2) + x,
+    x Wv computed once for both branches. Counted as
+    ``LAUNCHES["msab_masked_kernel"]``."""
     if x.device.type == "cpu":
-        return msab_pos_plain(x, m, blk)
+        return msab_pos_plain(x, m, blk, gate)
     from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
 
-    _check_pos(x, m, blk)
+    _check_pos(x, m, blk, gate)
     n, h, w, c = x.shape
     # the kernel copies rows of C floats in pieces of 16 bytes at C = 124,
     # 8 at C = 62 and 4 at C = 31, so their starts must be aligned as much
@@ -494,25 +516,29 @@ def msab_pos(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor
         frames = frames.clone()
     if mats.data_ptr() % align:  # a frame's slice of a batch's matrices
         mats = mats.clone()
+    gates = None if gate is None else gate.contiguous()
     out = torch.empty_like(frames)
     _build.launch(_lib(), "av_msab_pos", x.device, frames.data_ptr(), out.data_ptr(), mats.data_ptr(), _ptr(blk.wv),
-                  _ptr(blk.bproj), _ptr(blk.pos0), _ptr(blk.pos2), n, h, w, c, th, tw)
-    LAUNCHES["msab_apply_kernel"] += 1
+                  _ptr(blk.bproj), _ptr(blk.pos0), _ptr(blk.pos2), None if gates is None else gates.data_ptr(),
+                  n, h, w, c, th, tw)
+    LAUNCHES["msab_apply_kernel" if gate is None else "msab_masked_kernel"] += 1
     return out
 
 
-def msab_apply(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights) -> torch.Tensor:
+def msab_apply(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights, gate: torch.Tensor | None = None
+               ) -> torch.Tensor:
     """MSAB pass B on (N, H, W, C) float32 frames with the per-frame
     (N, C, C) attention matrix ``m`` of ``attn_matrix``: res1 = x m + bproj
     + dw3(gelu(dw3(x Wv))) + x, out = W4 gelu(dw3(gelu(W0 LN(res1)))) +
     res1; every depthwise 3x3 zero-pads its own input. On the card:
-    ``msab_pos``, then ``fused_mst.ffn``, on the same stream."""
+    ``msab_pos``, then ``fused_mst.ffn``, on the same stream. With
+    ``gate``, ``msab_pos``'s masked form."""
     if x.device.type == "cpu":
-        return msab_apply_plain(x, m, blk)
+        return msab_apply_plain(x, m, blk, gate)
     from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
 
-    _check_apply(x, m, blk)
-    return fused_mst.ffn(msab_pos(x, m, blk), blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
+    _check_apply(x, m, blk, gate)
+    return fused_mst.ffn(msab_pos(x, m, blk, gate), blk.ln_w, blk.ln_b, blk.w0, blk.dw, blk.w4)
 
 
 def _check_up(fea, skip, uw: UpFuseWeights, composed: bool = True) -> None:

@@ -11,7 +11,8 @@ raises on failure:
 2. build: compiles every ``csrc/*.cu`` kernel library (one nvcc per source,
    all at once) and prints ptxas' register and shared-memory report; for
    the tensor-core kernels (``conv_kernel``, ``attn_stats_kernel``,
-   ``msab_pos_kernel``, ``up_fuse_kernel``, ``ffn_kernel``) it prints each
+   ``msab_pos_kernel``, ``msab_pos_masked_kernel``, ``up_fuse_kernel``,
+   ``ffn_kernel``) it prints each
    instance's registers, spills and dynamic shared memory and the count of
    ``HMMA`` instructions in its SASS (``cuobjdump --dump-sass``), and fails
    if one has none;
@@ -26,7 +27,9 @@ raises on failure:
    272x480 (kestrel's and goldfish's 0.25-scale operating point), random
    weights of scale 0.2: conv, up_fuse and pass B's first half alone
    (``msab_pos``) <= 1e-4, stats <= 1e-5 of max |G|, apply (``msab_pos``
-   then ``ffn``) <= 5e-4; MST-L's FFN kernel at the same levels and at 721x1283
+   then ``ffn``) <= 5e-4; MST-L's masked pos kernel (``msab_pos`` with a
+   (1, H, W, C) gate) at the three levels of one 272x480 frame, <= 1e-4;
+   MST-L's FFN kernel at the same levels and at 721x1283
    with C = 31, weights of scale 0.2, <= 1e-4; then each kernel's time
    (CUDA events around calls queued ahead of the card, so that no
    wrapper's host time shows), its plain version's time, its bound, and a library
@@ -211,7 +214,8 @@ TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 # (msab_apply_kernel: msab_pos_kernel, then ffn_kernel) and the built
 # instances the build phase reports
 TC_KERNELS = ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel", "up_fuse_kernel", "ffn_kernel")
-TC_INSTANCES = ("conv_kernel", "attn_stats_kernel", "msab_pos_kernel", "up_fuse_kernel", "ffn_kernel")
+TC_INSTANCES = ("conv_kernel", "attn_stats_kernel", "msab_pos_kernel", "msab_pos_masked_kernel", "up_fuse_kernel",
+                "ffn_kernel")
 KERNEL_REPS = 100
 PLAIN_REPS = 5
 MAIN_REPS = 100
@@ -231,7 +235,8 @@ PROFILE_REPS = 5
 MST_POINTS = {"1080p": ((1080, 1920), 1), "272x480": ((272, 480), BATCH)}
 MST_KERNEL_REPS = 10
 MST_PLAIN_REPS = 2
-MST_TOL = {"conv_kernel": 1e-4, "up_fuse_kernel": 1e-4, "msab_pos_kernel": 1e-4, "msab_apply_kernel": 5e-4}
+MST_TOL = {"conv_kernel": 1e-4, "up_fuse_kernel": 1e-4, "msab_pos_kernel": 1e-4, "msab_apply_kernel": 5e-4,
+           "msab_pos_masked_kernel": 1e-4}
 MST_STATS_REL_TOL = 1e-5  # of max |G|
 MST_FORWARD_TOL = 5e-4
 MST_FORWARD_REPS = 10
@@ -250,6 +255,9 @@ FFN_TOL = 1e-4
 MSTL_FORWARD_REL_TOL = 5e-4  # of max |y|: the seeded model's output reaches the hundreds
 MSTL_FORWARD_REPS = 5
 MSTL_PER_FORWARD = 27
+# MST-L's masked pos kernel: (point, padded frame, frames per call) of its
+# operating point, the quarter-scale 1080p frame, one frame per forward
+MSTL_MASKED_POINT = ("272x480", (272, 480), 1)
 # the non-UV ablation (csrc/nonuv_probe.cu): (name, curve, mix, taps) per variant
 PROBE_FRAMES = 4
 PROBE_VARIANTS = (("copy", 0, 0, 0), ("curves by powf", 1, 0, 0), ("curves by tables", 2, 0, 0),
@@ -289,6 +297,7 @@ SOURCES = {
     "conv_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
     "attn_stats_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
     "msab_apply_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
+    "msab_pos_masked_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
     "up_fuse_kernel": "animal_vision_tpu_torch/csrc/fused_msab.cu",
     "ffn_kernel": "animal_vision_tpu_torch/csrc/fused_mst.cu",
     "gelu_probe": "animal_vision_tpu_torch/csrc/gelu_probe.cu",
@@ -301,6 +310,7 @@ REPLACES = {
     "conv_kernel": "animal_vision_tpu/ops/fused_msab.py:636",
     "attn_stats_kernel": "animal_vision_tpu/ops/fused_msab.py:192",
     "msab_apply_kernel": "animal_vision_tpu/ops/fused_msab.py:293",
+    "msab_pos_masked_kernel": "animal_vision_tpu/models/mst.py:44",  # MST-L's attention, plain XLA there
     "up_fuse_kernel": "animal_vision_tpu/ops/fused_msab.py:848",
     "ffn_kernel": "animal_vision_tpu/ops/fused_mst.py:54",
     "gelu_probe": "tools/exp_vpu_bf16.py:55",
@@ -524,7 +534,7 @@ def build_phase() -> dict:
 def instance_name(mangled: str) -> str:
     """``conv_kernel<4,2,62,124>`` from a mangled kernel name (the name
     itself when it is not one of the tensor-core kernels)."""
-    m = re.search(r"\d+((?:conv|ffn|attn_stats|msab_pos|up_fuse)_kernel)I((?:Li-?\d+E)+)E", mangled)
+    m = re.search(r"\d+((?:conv|ffn|attn_stats|msab_pos|msab_pos_masked|up_fuse)_kernel)I((?:Li-?\d+E)+)E", mangled)
     if not m:
         return mangled
     return f"{m.group(1)}<{','.join(re.findall(r'Li(-?[0-9]+)E', m.group(2)))}>"
@@ -569,7 +579,7 @@ def tensor_core_report(reports: dict) -> dict:
             row["smem_bytes"] = T.smem_bytes(args[0], (args[1], args[2]))
         elif inst.startswith("attn_stats_kernel"):
             row["smem_bytes"] = M.stats_smem_bytes(args[0])
-        elif inst.startswith("msab_pos_kernel"):
+        elif inst.startswith(("msab_pos_kernel", "msab_pos_masked_kernel")):
             row["smem_bytes"] = M.pos_smem_bytes(args[0], M.POS_TILES[args[0]])
         elif inst.startswith("up_fuse_kernel"):
             row["smem_bytes"] = M.up_smem_bytes(args[0], M.UP_TILES[args[0]])
@@ -890,6 +900,42 @@ def mst_kernel_cases(hw: tuple[int, int], n: int, device: torch.device, gen) -> 
     return cases
 
 
+def masked_pos_cases(hw: tuple[int, int], n: int, device: torch.device, gen) -> list[dict]:
+    """MST-L's masked pos kernel (``msab_pos`` with a gate) at the three
+    levels of a padded frame ``hw`` with ``n`` frames per call: x, M' and a
+    (1, H, W, C) gate of scale 0.5, weights of scale 0.2. Bytes as
+    ``portbench/work/mantis_mstl.py`` counts them: x read, the output
+    written and the gate read once per call (12 C per pixel of one frame),
+    plus M' and the weights; x Wv and the gated product in 3xTF32, two
+    depthwise 3x3s, one GELU, the gate's product and three adds per
+    channel."""
+    from animal_vision_tpu_torch.ops import fused_msab as M
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    h, w = hw
+    cases = []
+    for hh, ww, c in ((h, w, 31), (h // 2, w // 2, 62), (h // 4, w // 4, 124)):
+        x, m, gate = randn(n, hh, ww, c, scale=0.5), randn(n, c, c, scale=0.2), randn(1, hh, ww, c, scale=0.5)
+
+        def wt(*shape):
+            return randn(*shape, scale=0.2)
+
+        blk = M.MsabWeights(c // 31, wt(c, c), wt(c, c), wt(c, c), 1.0 + wt(c // 31), wt(c, c), wt(c), wt(3, 3, c),
+                            wt(3, 3, c), 1.0 + wt(c), wt(c), wt(c, 4 * c), wt(3, 3, 4 * c), wt(4 * c, c))
+        px = n * hh * ww
+        other = px * (2 * 9 * 2 * c + c + c + 3 * c)
+        cases.append(dict(
+            kernel="msab_pos_masked_kernel", counter="msab_masked_kernel", case=f"C={c} masked",
+            run=lambda x=x, m=m, blk=blk, gate=gate: M.msab_pos(x, m, blk, gate),
+            plain=lambda x=x, m=m, blk=blk, gate=gate: M.msab_pos_plain(x, m, blk, gate), library=None,
+            bytes=4 * (2 * px * c + hh * ww * c + n * c * c + c * c + c + 18 * c),
+            ops=px * 4 * c * c + other, tc_ops=(px * 4 * c * c, other),
+        ))
+    return cases
+
+
 def tc_bound(nbytes: int, prod_ops: int, other_ops: int) -> dict:
     """The least time of a kernel whose products run in 3xTF32 on the tensor
     cores: the largest of three TF32 passes over the product operations at
@@ -911,16 +957,18 @@ def mst_error(kernel: str, got, want) -> tuple[float, float]:
 
 
 def mst_kernels_phase(device: torch.device, points=MST_POINTS, reps=MST_KERNEL_REPS,
-                      plain_reps=MST_PLAIN_REPS) -> list[dict]:
-    """Each MST++ kernel against its plain version on the same inputs; its
-    time, the plain version's, its bound and, for the convolution, the
-    library call's."""
+                      plain_reps=MST_PLAIN_REPS, masked=MSTL_MASKED_POINT) -> list[dict]:
+    """Each MST++ kernel, then MST-L's masked pos kernel, against its plain
+    version on the same inputs; its time, the plain version's, its bound
+    and, for the convolution, the library call's."""
     from animal_vision_tpu_torch.ops import fused_msab as M
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     rows = []
-    for point, (hw, n) in points.items():
-        for case in mst_kernel_cases(hw, n, device, gen):
+    groups = [(point, hw, n, mst_kernel_cases) for point, (hw, n) in points.items()]
+    groups.append((*masked, masked_pos_cases))
+    for point, hw, n, make_cases in groups:
+        for case in make_cases(hw, n, device, gen):
             kernel = case["kernel"]
             got, want = case["run"](), case["plain"]()
             sync(device)
@@ -1466,8 +1514,9 @@ def mst_l_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MS
     kestrel and mantis shrimp with ``attach_model(..., "mst")`` and mantis
     shrimp with ``attach_mst`` (MST++, shipped weights) through
     ``visualize`` and ``visualize_batch_device``. The counters are set to 0
-    before that run and read after it: 27 ``ffn`` launches per MST-L
-    forward (one per frame), the MST++ counts per MST++ forward. Then each
+    before that run and read after it: 27 ``ffn``, ``attn_stats_kernel``
+    and ``msab_masked_kernel`` launches per MST-L forward (one per frame),
+    the MST++ counts per MST++ forward. Then each
     against its plain version on the card, and the times."""
     from animal_vision_tpu_torch.models import zoo
     from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
@@ -1486,11 +1535,12 @@ def mst_l_main_path_phase(device: torch.device, hw=MAIN_HW, batch=BATCH, reps=MS
                "mantis_shrimp+mst++": attach_mst(MantisShrimp(device), load_shipped(device))}
     sync(device)
 
-    items = {"forward": (lambda: model(x), {"ffn": MSTL_PER_FORWARD})}
+    mstl = {k: MSTL_PER_FORWARD for k in ("ffn", "attn_stats_kernel", "msab_masked_kernel")}
+    items = {"forward": (lambda: model(x), mstl)}
     for name, animal in animals.items():
         mst_pp = name.endswith("mst++")
-        one = {**MST_PER_FORWARD, **MST_FFN_PER_FORWARD} if mst_pp else {"ffn": MSTL_PER_FORWARD}
-        many = one if mst_pp else {"ffn": MSTL_PER_FORWARD * batch}  # MST-L: one forward per frame
+        one = {**MST_PER_FORWARD, **MST_FFN_PER_FORWARD} if mst_pp else mstl
+        many = one if mst_pp else {k: v * batch for k, v in mstl.items()}  # MST-L: one forward per frame
         items[f"{name} visualize"] = (lambda a=animal: a.visualize(host[0]), one)
         items[f"{name} batch{batch}"] = (lambda a=animal: a.visualize_batch_device(frames), many)
     outputs, per_item = {}, {}
@@ -3283,7 +3333,9 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
             launches: dict, ablation: dict, gelu_probe: dict) -> dict:
     """One entry per kernel: worst error over its cases and shapes; time,
     plain time, bound and library time of its heaviest main-path case at
-    1080p. Launches come from the main-path run of the kernel's species.
+    1080p (the masked pos kernel: its C = 31 case at 272x480, its operating
+    point, with the three levels under ``cases``). Launches come from the
+    main-path run of the kernel's species.
     The tensor-core kernels' ``bound_ms`` is their 3xTF32 bound (the f32
     one beside it); the convolution also reports its worst ratio to
     ``F.conv2d`` over its 10 cases, the blur its worst ratio to the
@@ -3341,6 +3393,17 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
             bound_ms=rep["bound_tc_ms"] if kernel in TC_KERNELS else rep["bound_ms"],
             bound_by=rep["bound_tc_by"] if kernel in TC_KERNELS else rep["bound_by"], **extra,
         ))
+    masked = [r for r in mst_rows if r["kernel"] == "msab_pos_masked_kernel"]
+    rep = masked[0]
+    out.append(dict(
+        name="msab_pos_masked_kernel", route="cuda", source=SOURCES["msab_pos_masked_kernel"],
+        replaces=REPLACES["msab_pos_masked_kernel"], launches=launches["msab_masked_kernel"],
+        max_abs_err=max(r["max_abs_err"] for r in masked), case=f"{rep['case']} {rep['h']}x{rep['w']}x{rep['frames']}",
+        ms=rep["ms"], plain_ms=rep["plain_ms"], library_ms=None, bound_ms=rep["bound_tc_ms"],
+        bound_by=rep["bound_tc_by"], bound_f32_simt_ms=rep["bound_ms"],
+        cases=[dict(case=r["case"], h=r["h"] >> i, w=r["w"] >> i, ms=r["ms"], bound_ms=r["bound_tc_ms"],
+                    bound_share=r["bound_tc_ms"] / r["ms"]) for i, r in enumerate(masked)],
+    ))
     rep = next(r for r in ffn_rows if r["case"] == "C=31" and r["point"] == "1080p")
     out.append(dict(
         name="ffn_kernel", route="cuda", source=SOURCES["ffn_kernel"], replaces=REPLACES["ffn_kernel"],
@@ -3416,7 +3479,8 @@ def main() -> int:
         f"{uv_run['hm_fps_without_rat_uv']:.1f} fps); through visualize: {uv_run['hm_visualize_fps']:.1f} fps "
         f"({uv_run['hm_visualize_fps_without_rat_uv']:.1f} fps)")
     launches = {**main_run["launches"], "blur_uv": uv_run["launches"]["blur_uv"],
-                **{k: mst_run["launches"][k] for k in MST_PER_FORWARD}, "ffn_kernel": mst_l_run["launches"]["ffn"]}
+                **{k: mst_run["launches"][k] for k in MST_PER_FORWARD}, "ffn_kernel": mst_l_run["launches"]["ffn"],
+                "msab_masked_kernel": mst_l_run["launches"]["msab_masked_kernel"]}
     kernels = summary(kernel_rows, blur_rows, mst_rows, ffn_rows, launches, ablation, gelu_probe)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(device=info, build=build, ablation=ablation, kernel_cases=kernel_rows,

@@ -15,7 +15,7 @@ import torch
 from animal_vision_tpu_torch.core import blur, color
 from animal_vision_tpu_torch.models import zoo
 from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
-from animal_vision_tpu_torch.models.providers import attach_model, attach_mst
+from animal_vision_tpu_torch.models.providers import attach_model, attach_mst, make_mst_hsi_provider
 from animal_vision_tpu_torch.ops import fused_blur as B
 from animal_vision_tpu_torch.ops import fused_msab as M
 from animal_vision_tpu_torch.ops import fused_mst as T
@@ -571,6 +571,40 @@ def test_msab_apply_kernel_frames_independent(cuda, no_plain_on_cuda, c):
         assert torch.equal(got[i:i + 1], M.msab_apply(x[i:i + 1].contiguous(), m[i:i + 1].contiguous(), blk))
 
 
+def _gate(rng, shape, c):
+    """A (1, H, W, C) gate of MST-L's range: m sigmoid(g) + m."""
+    m, g = _randn(rng, 1, *shape[1:], c, scale=0.5), _randn(rng, 1, *shape[1:], c)
+    return m * torch.sigmoid(g) + m
+
+
+@pytest.mark.parametrize("shape", MST_SHAPES + [(1, 1, 1), (1, 1, 7), (1, 5, 3), (2, 33, 70)])
+@pytest.mark.parametrize("c", M.MSAB_CHANNELS)
+def test_msab_pos_masked_kernel(cuda, no_plain_on_cuda, shape, c):
+    """The masked form (MST-L): within 1e-4 of its plain version, counted
+    as ``msab_masked_kernel`` and not as the unmasked launch."""
+    x, m, blk = _msab_operands(shape, c)
+    gate = _gate(np.random.default_rng(c + 3), shape, c)
+    before = M.LAUNCHES["msab_apply_kernel"]
+    got = _counted("msab_masked_kernel", M.msab_pos, x.to(cuda), m.to(cuda), _to(blk, cuda), gate.to(cuda))
+    assert M.LAUNCHES["msab_apply_kernel"] == before
+    want = no_plain_on_cuda["msab_pos_plain"](x, m, blk, gate)
+    assert got.shape == want.shape
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("c", M.MSAB_CHANNELS)
+def test_msab_pos_masked_kernel_frames_independent(cuda, no_plain_on_cuda, c):
+    """A batch of 2 with one gate equals each frame alone, bit for bit, and
+    two runs are bit-equal."""
+    x, m, blk = _msab_operands((2, 17, 33), c)
+    gate = _gate(np.random.default_rng(c + 4), (2, 17, 33), c).to(cuda)
+    x, m, blk = x.to(cuda), m.to(cuda), _to(blk, cuda)
+    got = M.msab_pos(x, m, blk, gate)
+    assert torch.equal(got, M.msab_pos(x, m, blk, gate))
+    for i in range(x.shape[0]):
+        assert torch.equal(got[i:i + 1], M.msab_pos(x[i:i + 1].contiguous(), m[i:i + 1].contiguous(), blk, gate))
+
+
 def test_msab_pos_tile_raises_above_shared_memory(cuda):
     """Two blocks of the 8x16 tile fit an SM of this card at C = 31, of 8x8
     at C = 62 and of 4x8 at C = 124, and the library's shared memory per
@@ -649,7 +683,7 @@ def test_mst_on_card_vs_cpu(cuda, no_plain_on_cuda):
             got = gpu(x.to(cuda))
             torch.cuda.synchronize()
             assert M.LAUNCHES == {"conv_kernel": 14, "attn_stats_kernel": 15, "msab_apply_kernel": 15,
-                                  "up_fuse_kernel": 6}
+                                  "up_fuse_kernel": 6, "msab_masked_kernel": 0}
             assert T.LAUNCHES == {"ffn": 15}
             want = cpu(x)
         assert got.shape == want.shape == (*shape[:3], 31)
@@ -718,19 +752,56 @@ def test_ffn_tile_raises_above_shared_memory(cuda):
 
 
 def test_mst_l_on_card_vs_cpu(cuda, no_plain_on_cuda):
-    """MST-L with seeded weights at 40x67 (padded to 40x72): 27 FFN kernel
-    launches per forward, within 5e-4 of max |y| of the CPU forward."""
+    """MST-L with seeded weights at 40x67 (padded to 40x72): per forward 27
+    launches each of the stats, masked pos and FFN kernels (none of the
+    unmasked pos kernel), within 5e-4 of max |y| of the CPU forward."""
     gpu = zoo.model_generator("mst", device=cuda)
     cpu = zoo.model_generator("mst", device="cpu")
     x = torch.from_numpy(np.random.default_rng(9).random((1, 40, 67, 3), dtype=np.float32))
+    M.reset_launches()
     T.reset_launches()
     with torch.no_grad():
         got = gpu(x.to(cuda))
         torch.cuda.synchronize()
         assert T.LAUNCHES["ffn"] == 27
+        assert M.LAUNCHES == {"conv_kernel": 0, "attn_stats_kernel": 27, "msab_apply_kernel": 0, "up_fuse_kernel": 0,
+                              "msab_masked_kernel": 27}
         want = cpu(x)
     assert got.shape == want.shape == (1, 40, 67, 31)
     assert (got.cpu() - want).abs().max().item() <= 5e-4 * max(1.0, want.abs().max().item())
+
+
+def test_mst_l_provider_replays_a_graph_per_shape(cuda, no_plain_on_cuda):
+    """MST-L's provider on the card: the first frame of a shape runs the
+    module and captures its forward, the other frames replay the graph.
+    Every frame equals the module's own forward (the same kernels; 1e-5 of
+    max |y| leaves room for cuDNN picking another algorithm under capture),
+    a second call equals the first, and each frame counts 27 launches of
+    the stats, masked pos and FFN kernels, replays included. Reloading the
+    weights captures anew."""
+    module = zoo.model_generator("mst", device=cuda, seed=0)
+    provider = make_mst_hsi_provider(module, device=cuda)
+    for shape in ((3, 40, 67), (2, 24, 40)):
+        x = torch.from_numpy(np.random.default_rng(12).random((*shape, 3), dtype=np.float32)).to(cuda)
+        with torch.no_grad():
+            want = torch.cat([torch.clamp(module(x[i:i + 1]), min=0.0) for i in range(shape[0])])
+        bar = 1e-5 * max(1.0, want.abs().max().item())
+        outs = []
+        for _ in range(2):
+            M.reset_launches()
+            T.reset_launches()
+            outs.append(provider(x))
+            torch.cuda.synchronize()
+            n = 27 * shape[0]
+            assert T.LAUNCHES["ffn"] == n
+            assert M.LAUNCHES == {"conv_kernel": 0, "attn_stats_kernel": n, "msab_apply_kernel": 0,
+                                  "up_fuse_kernel": 0, "msab_masked_kernel": n}
+            assert (outs[-1] - want).abs().max().item() <= bar
+        assert torch.equal(outs[0][1:], outs[1][1:])  # replays of one graph
+    module.load_state_dict({k: v * 0.5 for k, v in module.state_dict().items()})
+    with torch.no_grad():
+        want = torch.cat([torch.clamp(module(x[i:i + 1]), min=0.0) for i in range(x.shape[0])])
+    assert (provider(x) - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
 
 
 @pytest.mark.parametrize("cls", [Kestrel, MantisShrimp])
@@ -977,7 +1048,8 @@ def test_kernel_forward_after_a_train_step(cuda):
     with torch.no_grad():
         got = card.model(x)
         torch.cuda.synchronize()
-        assert M.LAUNCHES == {"conv_kernel": 6, "attn_stats_kernel": 5, "msab_apply_kernel": 5, "up_fuse_kernel": 2}
+        assert M.LAUNCHES == {"conv_kernel": 6, "attn_stats_kernel": 5, "msab_apply_kernel": 5, "up_fuse_kernel": 2,
+                              "msab_masked_kernel": 0}
         assert T.LAUNCHES == {"ffn": 5}
         want = card.model(x, plain=True)
     assert (got - want).abs().max().item() < 5e-4
