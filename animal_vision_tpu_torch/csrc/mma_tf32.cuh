@@ -90,6 +90,26 @@ __device__ __forceinline__ FragB load_b(const float* corner, int pitch, int g, i
   return f;
 }
 
+// B fragments split once and kept split (ffn_kernel): a lane's
+// {hi(b0), hi(b1), lo(b0), lo(b1)} in one uint4. A fragment's 32 lanes are
+// 32 consecutive uint4, so each 16-byte load is free of bank conflicts.
+__device__ __forceinline__ uint4 split_b(float b0, float b1) {
+  uint4 v;
+  split(b0, v.x, v.z);
+  split(b1, v.y, v.w);
+  return v;
+}
+
+__device__ __forceinline__ FragB load_b_split(const uint4* frag, int lane) {
+  const uint4 v = frag[lane];
+  FragB f;
+  f.hi[0] = v.x;
+  f.hi[1] = v.y;
+  f.lo[0] = v.z;
+  f.lo[1] = v.w;
+  return f;
+}
+
 // d += a * b in 3xTF32: the two cross terms, then the large one.
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
   mma_tf32(d, a.lo, b.hi);

@@ -13,8 +13,10 @@ raises; on a CPU tensor it takes its plain version, ``ffn_plain``. Nothing
 falls back. The kernel stages an output tile with a 1-pixel halo in shared
 memory and runs both 1x1 products on the tensor cores in 3xTF32, the 4C
 hidden in chunks of 32 (C = 31) or 16 (C = 62, 124) channels, one output
-tile per C; ``tile_for`` raises, naming C and the tile, where two blocks of
-it do not fit one SM's shared memory.
+tile per C; each weight is split into its TF32 hi and lo parts once per
+block, and each activation fragment once for all the products it enters,
+not at every fragment load. ``tile_for`` raises, naming C and the tile, where two
+blocks of it do not fit one SM's shared memory.
 
 Weights are in the layouts the kernel reads: w0 (C, 4C), dw (3, 3, 4C),
 w4 (4C, C), ln_w and ln_b (C,).
@@ -57,6 +59,8 @@ def _lib() -> ctypes.CDLL:
         lib.av_mst_ffn.restype = ctypes.c_int
         lib.av_mst_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
         lib.av_mst_smem_limit.restype = ctypes.c_int
+        lib.av_mst_ffn_blocks_per_sm.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+        lib.av_mst_ffn_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -72,6 +76,17 @@ def smem_limit(device_index: int) -> int:
     return sm_bytes.value - 2 * reserved.value
 
 
+def blocks_per_sm(c: int, device_index: int) -> int:
+    """Blocks of the kernel built for C = ``c`` that one SM of the CUDA
+    device ``device_index`` holds at once (the occupancy calculator, with
+    the kernel's registers and shared memory)."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _build.check(lib, lib.av_mst_ffn_blocks_per_sm(c, ctypes.byref(blocks)), "av_mst_ffn_blocks_per_sm")
+    return blocks.value
+
+
 def hidden_chunk(c: int) -> int:
     """Hidden channels per chunk of the kernel at C = ``c``."""
     return 32 if c <= 31 else 16
@@ -80,13 +95,13 @@ def hidden_chunk(c: int) -> int:
 def smem_bytes(c: int, tile: tuple[int, int]) -> int:
     """Shared memory of one block: LN(x) and a hidden chunk over the tile
     with its 1-pixel halo, the chunk after the depthwise conv over the tile,
-    and two stages of the chunk's W0 and W4 slabs, at the kernel's padded
-    pitches. Must equal ``Ffn::SMEM_FLOATS`` in ``csrc/fused_mst.cu``."""
+    and the chunk's W0 and W4 slabs split into TF32 hi and lo, at the
+    kernel's padded pitches. Must equal ``Ffn::SMEM_FLOATS`` in
+    ``csrc/fused_mst.cu``."""
     th, tw = tile
     cp, hc = -(-c // 8) * 8, hidden_chunk(c)
     n1, n0 = (th + 2) * (tw + 2), th * tw
-    stage = cp * (hc + 8) + hc * (cp + 8)
-    return 4 * (n1 * (cp + 4) + n1 * (hc + 8) + n0 * (hc + 4) + 2 * stage)
+    return 4 * (n1 * (cp + 4) + n1 * (hc + 8) + n0 * (hc + 4) + 2 * 2 * cp * hc)
 
 
 def tile_for(c: int, limit: int) -> tuple[int, int]:
@@ -125,8 +140,6 @@ def ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w0: torch.Tenso
     if x.device.type == "cpu":
         return ffn_plain(x, ln_w, ln_b, w0, dw, w4)
     _check(x, ln_w, ln_b, w0, dw, w4)
-    if w0.data_ptr() % 16 or w4.data_ptr() % 16:
-        raise ValueError("ffn: w0 and w4 must start on 16 bytes (the kernel copies their rows in 16-byte pieces)")
     n, h, w, c = x.shape
     index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     th, tw = tile_for(c, smem_limit(index))

@@ -29,8 +29,10 @@ raises on failure:
    (``msab_pos``) <= 1e-4, stats <= 1e-5 of max |G|, apply (``msab_pos``
    then ``ffn``) <= 5e-4; MST-L's masked pos kernel (``msab_pos`` with a
    (1, H, W, C) gate) at the three levels of one 272x480 frame, <= 1e-4;
-   MST-L's FFN kernel at the same levels and at 721x1283
-   with C = 31, weights of scale 0.2, <= 1e-4; then each kernel's time
+   the FFN kernel at the launches of honeybee's MST++ (4 frames of 1080x1920
+   and its levels) and of mantis's MST-L (one 272x480 frame and its levels)
+   and at 721x1283 with C = 31, weights of scale 0.2, <= 1e-4, with the
+   blocks of each instance that an SM holds; then each kernel's time
    (CUDA events around calls queued ahead of the card, so that no
    wrapper's host time shows), its plain version's time, its bound, and a library
    reference for the UV blur (reflect pad + two depthwise convolutions)
@@ -247,9 +249,11 @@ MST_FFN_PER_FORWARD = {"ffn": 15}
 # the 1080p case of each MST++ kernel that the summary line reports
 MST_REPRESENTATIVE = {"conv_kernel": "31->31 k3", "attn_stats_kernel": "C=31", "msab_apply_kernel": "C=31",
                       "up_fuse_kernel": "62->31"}
-# MST-L's FFN: (point, frames, h, w, C) of each case; the first two points'
-# three levels, then 721x1283 at C = 31
-FFN_CASES = tuple((point, n, h >> lvl, w >> lvl, c) for point, ((h, w), n) in MST_POINTS.items()
+# The FFN kernel at the main paths' launches: (point, frames, h, w, C) of each
+# case; honeybee's MST++ (4 frames of 1080x1920 per launch) and mantis's MST-L
+# (one 272x480 frame per launch) at their three levels, then 721x1283 at C = 31
+FFN_POINTS = {"honeybee": ((1080, 1920), BATCH), "mantis": ((272, 480), 1)}
+FFN_CASES = tuple((point, n, h >> lvl, w >> lvl, c) for point, ((h, w), n) in FFN_POINTS.items()
                   for lvl, c in enumerate((31, 62, 124))) + (("721x1283", 1, 721, 1283, 31),)
 FFN_TOL = 1e-4
 MSTL_FORWARD_REL_TOL = 5e-4  # of max |y|: the seeded model's output reaches the hundreds
@@ -521,8 +525,10 @@ def build_phase() -> dict:
     tc = tensor_core_report(reports)
     for inst, row in tc.items():
         log(f"[build] {inst}: {row['registers']} registers, {row['spill_stores']}/{row['spill_loads']} bytes "
-            f"spilled (stores/loads), {row['smem_bytes']} bytes of dynamic shared memory, {row['hmma']} HMMA in "
-            f"its SASS")
+            f"spilled (stores/loads), {row['smem_bytes']} bytes of dynamic shared memory, {row['hmma']} HMMA of "
+            f"{row['instructions']} instructions in its SASS"
+            + "".join(f"; a product's steps {p['instructions']} instructions, {p['hmma']} HMMA"
+                      for p in row.get("products", ())))
         if row["hmma"] == 0:
             raise AssertionError(f"{inst}: no HMMA instruction in its SASS")
     for kernel in TC_INSTANCES:
@@ -540,10 +546,31 @@ def instance_name(mangled: str) -> str:
     return f"{m.group(1)}<{','.join(re.findall(r'Li(-?[0-9]+)E', m.group(2)))}>"
 
 
+SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def product_steps(ops: list[str]) -> list[dict]:
+    """The static SASS of each tensor-core product of a kernel: between two
+    barriers, the instructions from its first HMMA to its last (the unrolled
+    steps: fragment loads, any splitting, the HMMAs) and its HMMAs, in code
+    order."""
+    steps, region = [], []
+    for op in ops + ["BAR"]:
+        if not op.startswith("BAR"):
+            region.append(op)
+            continue
+        at = [i for i, o in enumerate(region) if o.startswith("HMMA")]
+        if at:
+            steps.append(dict(instructions=at[-1] - at[0] + 1, hmma=len(at)))
+        region = []
+    return steps
+
+
 def tensor_core_report(reports: dict) -> dict:
     """Per instance of the tensor-core kernels: ptxas' registers and spills
-    (the build log), its dynamic shared memory (from the wrappers) and the
-    count of HMMA instructions in its SASS."""
+    (the build log), its dynamic shared memory (from the wrappers), the
+    count of its SASS instructions and of HMMA among them, and for the FFN
+    kernel each product's static steps (``product_steps``)."""
     from animal_vision_tpu_torch.ops import _build
     from animal_vision_tpu_torch.ops import fused_msab as M
     from animal_vision_tpu_torch.ops import fused_mst as T
@@ -566,13 +593,20 @@ def tensor_core_report(reports: dict) -> dict:
                 out[current]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))], capture_output=True,
                               text=True, timeout=300, check=True).stdout
-        current = None
+        current, ops = None, {}
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 current = instance_name(m.group(1))
-            elif current in out and "HMMA" in line:
-                out[current]["hmma"] += 1
+                continue
+            m = SASS_OPCODE.search(line)
+            if current in out and m:
+                ops.setdefault(current, []).append(m.group(1))
+        for inst, seq in ops.items():
+            out[inst]["hmma"] = sum(op.startswith("HMMA") for op in seq)
+            out[inst]["instructions"] = len(seq)
+            if inst.startswith("ffn_kernel"):
+                out[inst]["products"] = product_steps(seq)
     for inst, row in out.items():
         args = [int(v) for v in inst[inst.index("<") + 1:-1].split(",")]
         if inst.startswith("ffn_kernel"):
@@ -1052,13 +1086,14 @@ def ffn_phase(device: torch.device, cases=FFN_CASES, reps=MST_KERNEL_REPS, plain
             plain_ms=plain_ms, library_ms=None, bound_ms=bound_s * 1e3, bytes=nbytes, ops=ops,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
             tile=list(T.tile_for(c, T.smem_limit(torch.cuda.current_device()))) if device.type == "cuda" else None,
+            blocks_per_sm=T.blocks_per_sm(c, torch.cuda.current_device()) if device.type == "cuda" else None,
             **tc_bound(nbytes, prod_ops, other_ops),
         )
         rows.append(row)
         log(f"[kernel] ffn_kernel        {row['case']:<22} {h}x{w} x{n}: err {err:.3g}, {ms:.4f} ms (plain "
             f"{plain_ms:.3f} ms, f32 bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
             f"{row['bound_ms'] / ms:.1%} of it, 3xTF32 bound {row['bound_tc_ms']:.4f} ms by {row['bound_tc_by']}, "
-            f"{row['bound_tc_ms'] / ms:.1%} of it; tile {row['tile']})")
+            f"{row['bound_tc_ms'] / ms:.1%} of it; tile {row['tile']}, {row['blocks_per_sm']} blocks per SM)")
         del x, ws
     return rows
 
@@ -3404,7 +3439,7 @@ def summary(kernel_rows: list[dict], blur_rows: list[dict], mst_rows: list[dict]
         cases=[dict(case=r["case"], h=r["h"] >> i, w=r["w"] >> i, ms=r["ms"], bound_ms=r["bound_tc_ms"],
                     bound_share=r["bound_tc_ms"] / r["ms"]) for i, r in enumerate(masked)],
     ))
-    rep = next(r for r in ffn_rows if r["case"] == "C=31" and r["point"] == "1080p")
+    rep = next(r for r in ffn_rows if r["case"] == "C=31" and r["point"] == "honeybee")
     out.append(dict(
         name="ffn_kernel", route="cuda", source=SOURCES["ffn_kernel"], replaces=REPLACES["ffn_kernel"],
         launches=launches["ffn_kernel"], max_abs_err=max(r["max_abs_err"] for r in ffn_rows),

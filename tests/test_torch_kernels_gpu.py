@@ -8,6 +8,8 @@ Without a card every test here skips. Each test bars the plain versions
 from CUDA tensors, so a pass also shows that the wrappers launch their
 kernels and never fall back."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -727,6 +729,43 @@ def test_ffn_kernel(cuda, no_plain_on_cuda, shape, c):
     want = no_plain_on_cuda["ffn_plain"](x, *ws)
     assert got.shape == want.shape
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+# SHA-256 of the output bytes of the kernel that split its operands at every
+# fragment load, for _ffn_operands(shape, c); splitting each operand once
+# computes the same fragments in the same order, so the bits must not move.
+FFN_DIGESTS = {
+    ((2, 40, 67), 31): "8bb32a44a34501c9fdee99fe072e379b3572a5984be36384bad9a7069a06ce7f",
+    ((2, 40, 67), 62): "fcd413a832a3e03692da06ebbb1b0df417095fec9d4b7f7ad4ae126f20770d17",
+    ((2, 40, 67), 124): "c0ac606e2fb43300994b0fe2d16a0c34dd714d38b48949850ca66773fcf99207",
+    ((4, 68, 120), 31): "f6bc483694c91c264fa18f7516e246dc2796ada713609b465a83f0814b4ecb40",
+    ((4, 68, 120), 62): "07e5a35ca0993ec87eb19e5e200ee2b1aef08c5aff2c493d0c521c20311dc1ab",
+    ((4, 68, 120), 124): "e8e7725f4fff17fa5026e19cd3f87450ac756d4fae88895c0476119ac11dd4ff",
+    ((1, 136, 240), 31): "a8657f5affb0448763c8ea6805b9a40ad1b8a5d4279ba0258374c3e8ef2ab109",
+    ((1, 136, 240), 62): "f7f99c75d8f607e47901a550e9cfc9be083aa21e03d43fb21ca42988f4c78459",
+    ((1, 136, 240), 124): "d6ef2549c92265b45a3add03e331d6f47f7997baf6fab66050e336ff6b2d84ef",
+    ((1, 68, 120), 31): "4cb47e0c995ccb14a2f40af57a3678ebd7a9a35752f5c4d40491f701abd287bb",
+    ((1, 68, 120), 62): "4bb5bd622c15f10e61d6a4686e3aa85631252da897f69190111c33cfde61910a",
+    ((1, 68, 120), 124): "d885d72fb10e64128e385b5a490d7155684777a2e8e082a2ca10bdea8bc2b38b",
+}
+
+
+@pytest.mark.parametrize("shape,c", sorted(FFN_DIGESTS))
+def test_ffn_kernel_bits_as_recorded(cuda, no_plain_on_cuda, shape, c):
+    """Ragged tiles (2 x 40 x 67), the 272x480 point's deepest level in a
+    batch of 4, and MST-L's levels one frame at a time (136 x 240, 68 x 120):
+    the output bytes hash to the digest recorded before the operands were
+    split once."""
+    x, ws = _ffn_operands(shape, c)
+    got = T.ffn(x.to(cuda), *(t.to(cuda) for t in ws))
+    assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == FFN_DIGESTS[(shape, c)]
+
+
+@pytest.mark.parametrize("c", T.FFN_CHANNELS)
+def test_ffn_two_blocks_per_sm(cuda, c):
+    """The kernel built for each C keeps two blocks (16 warps) on an SM, so
+    MST-L's small grids at C = 62 and 124 still fit one partial wave."""
+    assert T.blocks_per_sm(c, torch.cuda.current_device()) == 2
 
 
 @pytest.mark.parametrize("c", T.FFN_CHANNELS)

@@ -92,7 +92,7 @@ def test_ffn_checks_its_operands():
 H100_SMEM_FOR_TWO = 231_424  # an H100 SM's 233,472 bytes less two 1 KB block reservations
 
 
-@pytest.mark.parametrize("c,tile,nbytes", [(31, (8, 16), 93_632), (62, (8, 16), 97_984), (124, (8, 8), 109_504)])
+@pytest.mark.parametrize("c,tile,nbytes", [(31, (8, 16), 89_536), (62, (8, 16), 92_864), (124, (8, 8), 100_288)])
 def test_tile_for(c, tile, nbytes):
     """The tile built for each C, its shared memory (``Ffn::SMEM_FLOATS``
     of ``csrc/fused_mst.cu``), two blocks of which fit an H100 SM."""
@@ -106,3 +106,31 @@ def test_tile_for_raises_where_two_blocks_do_not_fit(c):
     th, tw = K.TILES[c]
     with pytest.raises(ValueError, match=f"C = {c} .* {th}x{tw} tile"):
         K.tile_for(c, 2 * K.smem_bytes(c, (th, tw)) - 4)
+
+
+@pytest.mark.parametrize("line,opcode", [
+    ("        /*0000*/                   MOV R1, c[0x0][0x28] ;            /* 0x00000a0000017a02 */", "MOV"),
+    ("        /*3d10*/               @P0 HMMA.1688.F32.TF32 R44, R40, R36, RZ ;  /* 0x00000024282c023c */",
+     "HMMA.1688.F32.TF32"),
+    ("        /*49e0*/              @!P5 FADD R49, -R49, 1 ;", "FADD"),
+    ("        /*16e0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;", "BAR.SYNC.DEFER_BLOCKING"),
+])
+def test_sass_opcode(line, opcode):
+    """``chip_smoke.py`` reads each SASS line's opcode past its predicate."""
+    import chip_smoke
+
+    assert chip_smoke.SASS_OPCODE.search(line).group(1) == opcode
+
+
+@pytest.mark.parametrize("ops,steps", [
+    (["LDS", "HMMA", "LOP3", "HMMA", "FFMA"], [{"instructions": 3, "hmma": 2}]),
+    (["HMMA", "BAR.SYNC", "LDS", "HMMA", "IADD3", "HMMA", "MUFU.EX2"],
+     [{"instructions": 1, "hmma": 1}, {"instructions": 3, "hmma": 2}]),
+    (["LDS", "BAR.SYNC", "FFMA"], []),
+])
+def test_product_steps(ops, steps):
+    """A product's static steps: from its first HMMA to its last between two
+    barriers, in code order; regions without HMMA are no product."""
+    import chip_smoke
+
+    assert chip_smoke.product_steps(ops) == steps
