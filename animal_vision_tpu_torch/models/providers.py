@@ -21,7 +21,7 @@ from animal_vision_tpu_torch.core import color
 from animal_vision_tpu_torch.models.mst import MSTModel
 from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus, load_state
 from animal_vision_tpu_torch.models.zoo import model_generator
-from animal_vision_tpu_torch.ops import fused_msab, fused_mst
+from animal_vision_tpu_torch.ops import _build
 from animal_vision_tpu_torch.utils.profiling import span
 
 #: the zoo's band grid (31 bands, 400-700 nm, the ARAD_1K convention)
@@ -29,8 +29,6 @@ MST_LAMBDAS = np.linspace(400.0, 700.0, 31, dtype=np.float32)
 #: the zoo's method names of the two MST models, for the ``model.forward``
 #: span (any other module is named by its class)
 _METHODS = {MSTModel: "mst", MSTPlusPlus: "mst_plus_plus"}
-#: the launch counters of the kernels an MST-L forward runs
-_COUNTERS = (fused_msab.LAUNCHES, fused_mst.LAUNCHES)
 
 
 @dataclass
@@ -39,7 +37,7 @@ class _Graph:
     x: torch.Tensor
     y: torch.Tensor
     weights: dict  # the prepared weights the graph reads, kept alive with it
-    launches: list[dict]  # per counter, the launches one replay makes
+    launches: dict  # the launches one replay makes, per key of ``_build.LAUNCHES``
 
 
 class _FrameGraphs:
@@ -67,20 +65,18 @@ class _FrameGraphs:
             return y
         g.x.copy_(x)
         g.graph.replay()
-        for counter, n in zip(_COUNTERS, g.launches):
-            for k, v in n.items():
-                counter[k] += v
+        for k, v in g.launches.items():
+            _build.LAUNCHES[k] += v
         return g.y.clone()
 
     def _capture(self, x: torch.Tensor, fw: dict) -> _Graph:
-        before = [dict(c) for c in _COUNTERS]
+        before = dict(_build.LAUNCHES)
         static_x = x.clone()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             static_y = self.module(static_x)
-        launches = [{k: c[k] - b[k] for k in c} for c, b in zip(_COUNTERS, before)]
-        for c, b in zip(_COUNTERS, before):
-            c.update(b)
+        launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+        _build.LAUNCHES.update(before)
         return _Graph(graph, static_x, static_y, fw, launches)
 
 

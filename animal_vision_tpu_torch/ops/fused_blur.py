@@ -1,4 +1,4 @@
-"""The UV blur kernel: wrapper, plain version, launch counter.
+"""The UV blur kernel: wrapper, plain version.
 
 Counterpart of ``animal_vision_tpu/ops/fused_blur.py``. ``blur_uv`` is a
 float32 separable Gaussian over (N, H, W, C) frames (C <= 8) with a given
@@ -18,55 +18,25 @@ naming the kernel size, when the card cannot hold it.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from animal_vision_tpu_torch.core import blur as _blur
 from animal_vision_tpu_torch.ops import _build
 
-#: Kernel launches (plain-version calls are not counted).
-LAUNCHES = {"blur_uv": 0}
-
 TILE_W = 64
 GROUP = 8  # rows per step of a block
 STAGES = 3  # staged input groups in flight
 RUN_ROWS = (128, 64, 32, 16)  # output rows per block, longest first
 MAX_CHANNELS = 8
-#: SMs of an H100 and the warps ``run_rows`` asks of each: runs are
-#: shortened until the grid holds that many
-SMS = 132
-WARPS_PER_SM = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def reset_launches() -> None:
-    LAUNCHES["blur_uv"] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_blur")
-    if lib.av_blur_uv.argtypes is None:
-        lib.av_blur_uv.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-        lib.av_blur_uv.restype = ctypes.c_int
-        lib.av_blur_uv_smem.argtypes = [_I, _I]
-        lib.av_blur_uv_smem.restype = ctypes.c_int
-        lib.av_blur_uv_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.av_blur_uv_smem_limit.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def smem_limit(device_index: int) -> int:
-    """The most dynamic shared memory, in bytes, one block may use on the
-    CUDA device ``device_index``."""
-    lib = _lib()
-    out = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        _build.check(lib, lib.av_blur_uv_smem_limit(ctypes.byref(out)), "av_blur_uv_smem_limit")
-    return out.value
+LIB = _build.Library("fused_blur", {
+    "av_blur_uv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "av_blur_uv_smem": [_I, _I],
+    "av_blur_uv_smem_limit": [_build.INT_OUT],
+})
 
 
 def smem_bytes(ksize: int, channels: int) -> int:
@@ -83,7 +53,7 @@ def smem_bytes(ksize: int, channels: int) -> int:
 
 def library_smem_bytes(ksize: int, channels: int) -> int:
     """A block's shared memory as the library counts it (builds the library)."""
-    return _lib().av_blur_uv_smem(ksize, channels)
+    return LIB.load().av_blur_uv_smem(ksize, channels)
 
 
 def block_smem(ksize: int, channels: int, limit: int) -> int:
@@ -97,11 +67,11 @@ def block_smem(ksize: int, channels: int, limit: int) -> int:
 
 def run_rows(n: int, h: int, w: int, channels: int) -> int:
     """Output rows per block: the longest run whose grid still gives every
-    SM ``WARPS_PER_SM`` warps (blocks of 2 min(C, 4) warps; the shortest run
-    for small frames)."""
+    SM ``_build.WARPS_PER_SM`` warps (blocks of 2 min(C, 4) warps; the
+    shortest run for small frames)."""
     warps = n * -(-w // TILE_W) * 2 * min(channels, 4)
     for rows in RUN_ROWS:
-        if warps * -(-h // rows) >= WARPS_PER_SM * SMS:
+        if warps * -(-h // rows) >= _build.WARPS_PER_SM * _build.SMS:
             return rows
     return RUN_ROWS[-1]
 
@@ -134,13 +104,11 @@ def blur_uv(img: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"frames on unsupported device {img.device}")
     n, h, w, c = img.shape
     ksize = int(taps.shape[0])
-    block_smem(ksize, c, smem_limit(img.device.index if img.device.index is not None
-                                     else torch.cuda.current_device()))
+    block_smem(ksize, c, _build.block_smem_limit(_build.device_index(img.device)))
     rows = run_rows(n, h, w, c)
     frames = img.contiguous()
     taps = taps.contiguous()
     out = torch.empty_like(frames)
-    _build.launch(_lib(), "av_blur_uv", frames.device, frames.data_ptr(), out.data_ptr(), taps.data_ptr(),
-                  ksize, rows, n, h, w, c)
-    LAUNCHES["blur_uv"] += 1
+    LIB.launch("av_blur_uv", "blur_uv", frames.device, frames.data_ptr(), out.data_ptr(), taps.data_ptr(),
+               ksize, rows, n, h, w, c)
     return out

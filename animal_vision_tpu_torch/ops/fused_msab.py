@@ -1,4 +1,4 @@
-"""The MST++ kernels: wrappers, plain versions, launch counters.
+"""The MST++ kernels: wrappers, plain versions.
 
 Counterpart of ``animal_vision_tpu/ops/fused_msab.py``. Four functions
 carry every convolution and MSAB block of ``models/mst_plus_plus.py`` on
@@ -67,11 +67,6 @@ import torch.nn.functional as F
 from animal_vision_tpu_torch.core import linalg
 from animal_vision_tpu_torch.ops import _build
 
-#: Kernel launches, one per wrapper call (plain-version calls are not counted);
-#: ``msab_masked_kernel`` counts the masked form of ``msab_pos``.
-LAUNCHES = {"conv_kernel": 0, "attn_stats_kernel": 0, "msab_apply_kernel": 0, "up_fuse_kernel": 0,
-            "msab_masked_kernel": 0}
-
 #: Blocks per frame and head of the stats kernel's first stage: the partial
 #: sums a frame is reduced from, in a fixed order (a function of the pixel
 #: count only, so a frame gets the same bits alone and in a batch): one per
@@ -95,6 +90,14 @@ UP_FEA_SLICE = {62: 32, 124: 16}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+LIB = _build.Library("fused_msab", {
+    "av_msab_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "av_msab_conv_smem": [_I, _I, _I],
+    "av_msab_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "av_msab_pos": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "av_msab_smem": [_I, _I],
+    "av_msab_up_fuse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+})
 
 
 class MsabWeights(NamedTuple):
@@ -173,26 +176,6 @@ def up_fuse_raw(wup: torch.Tensor, bup: torch.Tensor, fuse: torch.Tensor) -> UpF
     is composed or copied, so gradients flow to the tensors given (the
     differentiable forward of ``models/mst_plus_plus.py``)."""
     return UpFuseWeights(wup, bup, fuse, None, None, None, None)
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_msab")
-    if lib.av_msab_conv.argtypes is None:
-        lib.av_msab_conv.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-        lib.av_msab_stats.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-        lib.av_msab_pos.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-        lib.av_msab_up_fuse.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-        lib.av_msab_conv_smem.argtypes = [_I, _I, _I]
-        lib.av_msab_smem.argtypes = [_I, _I]
-        for fn in (lib.av_msab_conv, lib.av_msab_stats, lib.av_msab_pos, lib.av_msab_up_fuse,
-                   lib.av_msab_conv_smem, lib.av_msab_smem):
-            fn.restype = ctypes.c_int
-    return lib
 
 
 def _frames(x: torch.Tensor, what: str, channels=None) -> None:
@@ -366,9 +349,8 @@ def conv(x: torch.Tensor, w: torch.Tensor, residual: torch.Tensor | None = None)
         frames = frames.clone()
     out = torch.empty((n, ho, wo, cout), dtype=torch.float32, device=x.device)
     res = None if residual is None else _ptr(residual)
-    _build.launch(_lib(), "av_msab_conv", x.device, frames.data_ptr(), _ptr(w), res, out.data_ptr(),
-                  n, h, wd, cin, cout, k)
-    LAUNCHES["conv_kernel"] += 1
+    LIB.launch("av_msab_conv", "conv_kernel", x.device, frames.data_ptr(), _ptr(w), res, out.data_ptr(),
+               n, h, wd, cin, cout, k)
     return out
 
 
@@ -377,7 +359,7 @@ def conv_smem_bytes(k: int, cin: int, cout: int) -> int:
     (K, Cin, Cout) in ``CONV_SHAPES``, in bytes (builds the library)."""
     if (k, cin, cout) not in CONV_SHAPES:
         raise ValueError(f"conv: the kernel is built for (K, Cin, Cout) in {CONV_SHAPES}, got {(k, cin, cout)}")
-    return _lib().av_msab_conv_smem(k, cin, cout)
+    return LIB.load().av_msab_conv_smem(k, cin, cout)
 
 
 def _check_stats(x, wq, wk, heads) -> None:
@@ -427,9 +409,8 @@ def attn_stats(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, heads: int):
     frames = x.contiguous()
     if frames.data_ptr() % 16:  # the kernel copies pixel rows in 8- or 16-byte pieces
         frames = frames.clone()
-    _build.launch(_lib(), "av_msab_stats", x.device, frames.data_ptr(), _ptr(wq), _ptr(wk),
-                  part.data_ptr(), out.data_ptr(), n, h * w, c, nblk)
-    LAUNCHES["attn_stats_kernel"] += 1
+    LIB.launch("av_msab_stats", "attn_stats_kernel", x.device, frames.data_ptr(), _ptr(wq), _ptr(wk),
+               part.data_ptr(), out.data_ptr(), n, h * w, c, nblk)
     g = out[:, : c * HEAD_DIM].reshape(n, heads, HEAD_DIM, HEAD_DIM)
     return g, out[:, c * HEAD_DIM: c * HEAD_DIM + c], out[:, c * HEAD_DIM + c:]
 
@@ -470,13 +451,13 @@ def kernel_smem_bytes(kind: str, c: int) -> int:
     """Dynamic shared memory of one block of the ``"pos"``, ``"stats"`` or
     ``"up_fuse"`` kernel at C = ``c`` as the library reports it, in bytes
     (builds the library)."""
-    return _lib().av_msab_smem({"pos": 0, "stats": 1, "up_fuse": 2}[kind], c)
+    return LIB.load().av_msab_smem({"pos": 0, "stats": 1, "up_fuse": 2}[kind], c)
 
 
 def pos_tile_for(c: int, limit: int) -> tuple[int, int]:
     """The pos kernel's output tile at C = ``c``; raises when two blocks of
     it do not fit in ``limit`` bytes of one SM's shared memory
-    (``fused_mst.smem_limit``)."""
+    (``_build.two_block_smem_limit``)."""
     th, tw = POS_TILES[c]
     need = 2 * pos_smem_bytes(c, (th, tw))
     if need > limit:
@@ -490,18 +471,16 @@ def msab_pos(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights, gate: torch.Ten
     """The first half of MSAB pass B on (N, H, W, C) float32 frames with the
     per-frame (N, C, C) attention matrix ``m`` of ``attn_matrix``:
     res1 = x m + bproj + dw3(gelu(dw3(x Wv, pos0)), pos2) + x; each
-    depthwise 3x3 zero-pads its own input. Counted as
-    ``LAUNCHES["msab_apply_kernel"]``.
+    depthwise 3x3 zero-pads its own input. Booked as
+    ``_build.LAUNCHES["msab_apply_kernel"]``.
 
     With ``gate``, a (1, H, W, C) map that every frame of the batch takes,
     the masked form: ``m`` is M' = A Wproj (``attn_matrix`` without Wv) and
     res1 = ((x Wv) * gate) m + bproj + dw3(gelu(dw3(x Wv, pos0)), pos2) + x,
-    x Wv computed once for both branches. Counted as
-    ``LAUNCHES["msab_masked_kernel"]``."""
+    x Wv computed once for both branches. Booked as
+    ``_build.LAUNCHES["msab_masked_kernel"]``."""
     if x.device.type == "cpu":
         return msab_pos_plain(x, m, blk, gate)
-    from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
-
     _check_pos(x, m, blk, gate)
     n, h, w, c = x.shape
     # the kernel copies rows of C floats in pieces of 16 bytes at C = 124,
@@ -509,8 +488,7 @@ def msab_pos(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights, gate: torch.Ten
     align = 16 if c % 4 == 0 else 8 if c % 2 == 0 else 4
     if blk.wv.data_ptr() % align:
         raise ValueError(f"msab_pos: wv must start on {align} bytes at C = {c}")
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    th, tw = pos_tile_for(c, fused_mst.smem_limit(index))
+    th, tw = pos_tile_for(c, _build.two_block_smem_limit(_build.device_index(x.device)))
     frames, mats = x.contiguous(), m.contiguous()
     if frames.data_ptr() % align:
         frames = frames.clone()
@@ -518,10 +496,9 @@ def msab_pos(x: torch.Tensor, m: torch.Tensor, blk: MsabWeights, gate: torch.Ten
         mats = mats.clone()
     gates = None if gate is None else gate.contiguous()
     out = torch.empty_like(frames)
-    _build.launch(_lib(), "av_msab_pos", x.device, frames.data_ptr(), out.data_ptr(), mats.data_ptr(), _ptr(blk.wv),
-                  _ptr(blk.bproj), _ptr(blk.pos0), _ptr(blk.pos2), None if gates is None else gates.data_ptr(),
-                  n, h, w, c, th, tw)
-    LAUNCHES["msab_apply_kernel" if gate is None else "msab_masked_kernel"] += 1
+    LIB.launch("av_msab_pos", "msab_apply_kernel" if gate is None else "msab_masked_kernel", x.device,
+               frames.data_ptr(), out.data_ptr(), mats.data_ptr(), _ptr(blk.wv), _ptr(blk.bproj), _ptr(blk.pos0),
+               _ptr(blk.pos2), None if gates is None else gates.data_ptr(), n, h, w, c, th, tw)
     return out
 
 
@@ -572,7 +549,7 @@ def up_smem_bytes(c: int, tile: tuple[int, int]) -> int:
 def up_tile_for(c: int, limit: int) -> tuple[int, int]:
     """The up-fuse kernel's input tile at C = ``c``; raises when two blocks
     of it do not fit in ``limit`` bytes of one SM's shared memory
-    (``fused_mst.smem_limit``)."""
+    (``_build.two_block_smem_limit``)."""
     th, tw = UP_TILES[c]
     need = 2 * up_smem_bytes(c, (th, tw))
     if need > limit:
@@ -590,8 +567,6 @@ def up_fuse(fea: torch.Tensor, skip: torch.Tensor, uw: UpFuseWeights) -> torch.T
     output parity (dy, dx) in 3xTF32."""
     if fea.device.type == "cpu":
         return up_fuse_plain(fea, skip, uw)
-    from animal_vision_tpu_torch.ops import fused_mst  # it imports this module
-
     _check_up(fea, skip, uw)
     n, h, w, c = fea.shape
     # the kernel copies fea in 8- or 16-byte pieces and skip in 4- or 8-byte
@@ -599,15 +574,13 @@ def up_fuse(fea: torch.Tensor, skip: torch.Tensor, uw: UpFuseWeights) -> torch.T
     align_f, align_s = (8, 4) if c == 62 else (16, 8)
     if uw.packed.data_ptr() % 16:
         raise ValueError("up_fuse: the packed weights must start on 16 bytes")
-    index = fea.device.index if fea.device.index is not None else torch.cuda.current_device()
-    th, tw = up_tile_for(c, fused_mst.smem_limit(index))
+    th, tw = up_tile_for(c, _build.two_block_smem_limit(_build.device_index(fea.device)))
     f, s = fea.contiguous(), skip.contiguous()
     if f.data_ptr() % align_f:
         f = f.clone()
     if s.data_ptr() % align_s:
         s = s.clone()
     out = torch.empty((n, 2 * h, 2 * w, c // 2), dtype=torch.float32, device=fea.device)
-    _build.launch(_lib(), "av_msab_up_fuse", fea.device, f.data_ptr(), s.data_ptr(), out.data_ptr(),
-                  _ptr(uw.packed), _ptr(uw.bc), n, h, w, c, th, tw)
-    LAUNCHES["up_fuse_kernel"] += 1
+    LIB.launch("av_msab_up_fuse", "up_fuse_kernel", fea.device, f.data_ptr(), s.data_ptr(), out.data_ptr(),
+               _ptr(uw.packed), _ptr(uw.bc), n, h, w, c, th, tw)
     return out

@@ -1,4 +1,4 @@
-"""The MST-L FFN kernel: wrapper, plain version, launch counter.
+"""The MST-L FFN kernel: wrapper, plain version.
 
 Counterpart of ``animal_vision_tpu/ops/fused_mst.py``. ``ffn`` is the
 prenorm feed-forward of every block of the mask-guided MST
@@ -25,7 +25,6 @@ w4 (4C, C), ln_w and ln_b (C,).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +32,6 @@ import torch.nn.functional as F
 from animal_vision_tpu_torch.core import linalg
 from animal_vision_tpu_torch.ops import _build
 from animal_vision_tpu_torch.ops.fused_msab import _dw3, _frames, _ptr, _same_device
-
-#: Kernel launches (plain-version calls are not counted).
-LAUNCHES = {"ffn": 0}
 
 #: Channel counts the kernel is built for (the three MST-L levels).
 FFN_CHANNELS = (31, 62, 124)
@@ -46,45 +42,18 @@ TILES = {31: (8, 16), 62: (8, 16), 124: (8, 8)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def reset_launches() -> None:
-    LAUNCHES["ffn"] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_mst")
-    if lib.av_mst_ffn.argtypes is None:
-        lib.av_mst_ffn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-        lib.av_mst_ffn.restype = ctypes.c_int
-        lib.av_mst_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-        lib.av_mst_smem_limit.restype = ctypes.c_int
-        lib.av_mst_ffn_blocks_per_sm.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
-        lib.av_mst_ffn_blocks_per_sm.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def smem_limit(device_index: int) -> int:
-    """The shared memory, in bytes, that two blocks may share on one SM of
-    the CUDA device ``device_index``: the SM's total less the per-block
-    reservation of each."""
-    lib = _lib()
-    sm_bytes, reserved = ctypes.c_int(0), ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        _build.check(lib, lib.av_mst_smem_limit(ctypes.byref(sm_bytes), ctypes.byref(reserved)), "av_mst_smem_limit")
-    return sm_bytes.value - 2 * reserved.value
+LIB = _build.Library("fused_mst", {
+    "av_mst_ffn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "av_mst_ffn_blocks_per_sm": [_I, _build.INT_OUT],
+    "av_mst_smem_limit": [_build.INT_OUT, _build.INT_OUT],
+})
 
 
 def blocks_per_sm(c: int, device_index: int) -> int:
     """Blocks of the kernel built for C = ``c`` that one SM of the CUDA
     device ``device_index`` holds at once (the occupancy calculator, with
     the kernel's registers and shared memory)."""
-    lib = _lib()
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        _build.check(lib, lib.av_mst_ffn_blocks_per_sm(c, ctypes.byref(blocks)), "av_mst_ffn_blocks_per_sm")
-    return blocks.value
+    return LIB.query("av_mst_ffn_blocks_per_sm", device_index, c)[0]
 
 
 def hidden_chunk(c: int) -> int:
@@ -107,7 +76,7 @@ def smem_bytes(c: int, tile: tuple[int, int]) -> int:
 def tile_for(c: int, limit: int) -> tuple[int, int]:
     """The kernel's output tile at C = ``c``; raises when two blocks of it
     do not fit in ``limit`` bytes of one SM's shared memory
-    (``smem_limit``)."""
+    (``_build.two_block_smem_limit``)."""
     th, tw = TILES[c]
     need = 2 * smem_bytes(c, (th, tw))
     if need > limit:
@@ -141,13 +110,11 @@ def ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w0: torch.Tenso
         return ffn_plain(x, ln_w, ln_b, w0, dw, w4)
     _check(x, ln_w, ln_b, w0, dw, w4)
     n, h, w, c = x.shape
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    th, tw = tile_for(c, smem_limit(index))
+    th, tw = tile_for(c, _build.two_block_smem_limit(_build.device_index(x.device)))
     frames = x.contiguous()
     if frames.data_ptr() % 16:  # the kernel copies pixel rows in 8- or 16-byte pieces
         frames = frames.clone()
     out = torch.empty_like(frames)
-    _build.launch(_lib(), "av_mst_ffn", x.device, frames.data_ptr(), out.data_ptr(), _ptr(ln_w), _ptr(ln_b),
-                  _ptr(w0), _ptr(dw), _ptr(w4), n, h, w, c, th, tw)
-    LAUNCHES["ffn"] += 1
+    LIB.launch("av_mst_ffn", "ffn", x.device, frames.data_ptr(), out.data_ptr(), _ptr(ln_w), _ptr(ln_b),
+               _ptr(w0), _ptr(dw), _ptr(w4), n, h, w, c, th, tw)
     return out

@@ -14,8 +14,8 @@ uint8 frames. The kernels are CUDA C++ for sm_90a in ``csrc/fused_nonuv.cu``:
 
 Each wrapper takes its plain PyTorch version (``*_plain``, built from
 ``core.color`` and ``core.blur``) for a tensor on the CPU, and for a CUDA
-tensor launches its kernel or raises: nothing falls back. ``LAUNCHES``
-counts kernel launches per wrapper. Tables are device tensors built once by
+tensor launches its kernel or raises: nothing falls back. Each launch is
+booked under its wrapper's name. Tables are device tensors built once by
 the caller (``iso_params``, ``streak_tables``, ``scone_gain``) and shared by
 every frame of a batch; frame sizes are run-time arguments of the kernels,
 so no table depends on anything but H.
@@ -42,11 +42,7 @@ from animal_vision_tpu_torch.core import blur as _blur
 from animal_vision_tpu_torch.core import color as _color
 from animal_vision_tpu_torch.core import effects as _effects
 from animal_vision_tpu_torch.ops import _build
-from animal_vision_tpu_torch.ops.fused_blur import SMS, WARPS_PER_SM, smem_limit
 from animal_vision_tpu_torch.utils.profiling import SETUP, span
-
-#: Kernel launches per wrapper (plain-version calls are not counted).
-LAUNCHES = {"iso_u8": 0, "streak_u8": 0, "pointwise_u8": 0}
 
 #: The iso kernel's strips, rows per step and largest kernel size; runs of
 #: output rows per block, longest first (csrc/fused_nonuv.cu)
@@ -67,7 +63,7 @@ ENCODE_TABLE = 255 + 2 * 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_ulonglong
-_ARGTYPES = {
+LIB = _build.Library("fused_nonuv", {
     "av_iso_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "av_iso_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "av_streak_u8": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P],
@@ -75,24 +71,9 @@ _ARGTYPES = {
     "av_encode_table": [_P, _P, _P],
     "av_encode_check": [_P, _U64, _U64, _P, _P],
     "av_iso_smem": [_I, _I],
-    "av_streak_slots": [_I, _I, ctypes.POINTER(_I)],
-    "av_pointwise_slots": [_I, ctypes.POINTER(_I)],
-}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_nonuv")
-    for fn, argtypes in _ARGTYPES.items():
-        f = getattr(lib, fn)
-        if f.argtypes is None:
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-    return lib
+    "av_streak_slots": [_I, _I, _build.INT_OUT],
+    "av_pointwise_slots": [_I, _build.INT_OUT],
+})
 
 
 def _frames(img: torch.Tensor) -> torch.Tensor:
@@ -120,30 +101,13 @@ def _check_operands(img: torch.Tensor, scale: torch.Tensor, *tables: torch.Tenso
     return frames
 
 
-def _launch(fn: str, img: torch.Tensor, *args) -> None:
-    _build.launch(_lib(), fn, img.device, *args)
-
-
-def _index(device: torch.device) -> int:
-    return device.index if device.index is not None else torch.cuda.current_device()
-
-
-def _query(fn: str, device_index: int, *args) -> int:
-    """An int that the library's entry point ``fn`` reports for the device."""
-    lib = _lib()
-    got = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        _build.check(lib, getattr(lib, fn)(*args, ctypes.byref(got)), fn)
-    return got.value
-
-
 @functools.lru_cache(maxsize=None)
 def _encode_table(device_index: int) -> torch.Tensor:
     device = torch.device("cuda", device_index)
     with span("ops.build", into=SETUP, library="encode_table"):
         table = torch.empty(ENCODE_TABLE, dtype=torch.float32, device=device)
         status = torch.zeros(2, dtype=torch.int32, device=device)
-        _launch("av_encode_table", table, table.data_ptr(), status.data_ptr())
+        LIB.launch("av_encode_table", None, device, table.data_ptr(), status.data_ptr())
         exceptions, collisions = status.tolist()  # synchronizes, once per device
     if collisions:
         raise RuntimeError(f"encode_table: {exceptions} floats where the card's encode is not monotone, "
@@ -156,7 +120,7 @@ def encode_table(device: torch.device) -> torch.Tensor:
     (the least float32 at which the card's powf encode reaches each code),
     then per threshold count k the float where the encode is not monotone
     (NaN where none) and its code. Each non-UV kernel takes it."""
-    return _encode_table(_index(torch.device(device)))
+    return _encode_table(_build.device_index(torch.device(device)))
 
 
 def encode_check(device: torch.device, start: int = 0, count: int = 1 << 32) -> tuple[int, int]:
@@ -165,7 +129,7 @@ def encode_check(device: torch.device, start: int = 0, count: int = 1 << 32) -> 
     ``start + count - 1``, on the card."""
     table = encode_table(device)
     result = torch.tensor([0, -1], dtype=torch.int64, device=table.device)
-    _launch("av_encode_check", table, table.data_ptr(), start, count, result.data_ptr())
+    LIB.launch("av_encode_check", None, table.device, table.data_ptr(), start, count, result.data_ptr())
     bad, first = (int(v) & (2**64 - 1) for v in result.tolist())
     return bad, first
 
@@ -219,7 +183,7 @@ def iso_smem_bytes(ksize: int, elem: int) -> int:
 
 def library_iso_smem_bytes(ksize: int, elem: int) -> int:
     """An iso block's shared memory as the library counts it (builds the library)."""
-    return _lib().av_iso_smem(ksize, elem)
+    return LIB.load().av_iso_smem(ksize, elem)
 
 
 def iso_check_ksize(ksize: int, elem: int, limit: int) -> int:
@@ -235,10 +199,11 @@ def iso_check_ksize(ksize: int, elem: int, limit: int) -> int:
 
 def iso_run_rows(n: int, h: int, w: int) -> int:
     """Output rows per iso block: the longest run whose grid still gives
-    every SM ``WARPS_PER_SM`` warps (the shortest run for small frames)."""
+    every SM ``_build.WARPS_PER_SM`` warps (the shortest run for small
+    frames)."""
     warps = n * -(-w // ISO_TILE_W) * ISO_BLOCK_WARPS
     for rows in ISO_RUN_ROWS:
-        if warps * -(-h // rows) >= WARPS_PER_SM * SMS:
+        if warps * -(-h // rows) >= _build.WARPS_PER_SM * _build.SMS:
             return rows
     return ISO_RUN_ROWS[-1]
 
@@ -266,13 +231,12 @@ def iso_u8(img: torch.Tensor, scale: torch.Tensor, params: torch.Tensor) -> torc
         return iso_u8_plain(img, scale, params)
     n, h, w, _ = frames.shape
     ksize = int(params.numel()) - 9
-    iso_check_ksize(ksize, frames.element_size(), smem_limit(_index(frames.device)))
+    iso_check_ksize(ksize, frames.element_size(), _build.block_smem_limit(_build.device_index(frames.device)))
     out = torch.empty(frames.shape, dtype=torch.uint8, device=frames.device)
     params = params.contiguous()
     fn = "av_iso_u8" if frames.dtype == torch.uint8 else "av_iso_f32"
-    _launch(fn, frames, frames.data_ptr(), out.data_ptr(), scale.data_ptr(), params.data_ptr(),
-            encode_table(frames.device).data_ptr(), ksize, iso_run_rows(n, h, w), n, h, w)
-    LAUNCHES["iso_u8"] += 1
+    LIB.launch(fn, "iso_u8", frames.device, frames.data_ptr(), out.data_ptr(), scale.data_ptr(), params.data_ptr(),
+               encode_table(frames.device).data_ptr(), ksize, iso_run_rows(n, h, w), n, h, w)
     return out.reshape(img.shape)
 
 
@@ -335,7 +299,7 @@ def streak_tables(
 def streak_slots(device_index: int, r: int, w: int) -> int:
     """Streak blocks the card holds at once for radius ``r`` and width ``w``
     (SMs x resident blocks per SM); raises when one block does not fit."""
-    slots = _query("av_streak_slots", device_index, r, w)
+    slots = LIB.query("av_streak_slots", device_index, r, w)[0]
     if slots < 1:
         raise ValueError(f"streak_u8: a row of width {w} with radius {r} does not fit one block's shared memory")
     return slots
@@ -386,15 +350,14 @@ def streak_u8(
     if img.device.type == "cpu":
         return streak_u8_plain(img, scale, tab, mix, chroma)
     r = int(tab.shape[1]) - 1
-    blocks = streak_blocks(n, h, streak_slots(_index(frames.device), r, w))
+    blocks = streak_blocks(n, h, streak_slots(_build.device_index(frames.device), r, w))
     out = torch.empty_like(frames)
     tab = tab.contiguous()
     mix = mix.contiguous()
     keep = 1.0 - chroma if chroma is not None else 1.0
-    _launch("av_streak_u8", frames, frames.data_ptr(), out.data_ptr(), scale.data_ptr(),
-            tab.data_ptr(), mix.data_ptr(), encode_table(frames.device).data_ptr(), r, keep,
-            int(chroma is not None), blocks, n, h, w)
-    LAUNCHES["streak_u8"] += 1
+    LIB.launch("av_streak_u8", "streak_u8", frames.device, frames.data_ptr(), out.data_ptr(), scale.data_ptr(),
+               tab.data_ptr(), mix.data_ptr(), encode_table(frames.device).data_ptr(), r, keep,
+               int(chroma is not None), blocks, n, h, w)
     return out.reshape(img.shape)
 
 
@@ -413,7 +376,7 @@ def scone_gain(h: int, scone: tuple) -> np.ndarray:
 def pointwise_slots(device_index: int, use_gain: bool) -> int:
     """Pointwise blocks (the instance with the gain or without) the card
     holds at once: SMs x resident blocks per SM."""
-    return _query("av_pointwise_slots", device_index, int(use_gain))
+    return LIB.query("av_pointwise_slots", device_index, int(use_gain))[0]
 
 
 def pointwise_blocks(n: int, npx: int, slots: int) -> int:
@@ -456,14 +419,13 @@ def pointwise_u8(
         return pointwise_u8_plain(img, scale, mat9, gain)
     if n > 65535:
         raise ValueError(f"pointwise_u8 takes at most 65535 frames per call, got {n}")
-    blocks = pointwise_blocks(n, h * w, pointwise_slots(_index(frames.device), gain is not None))
+    blocks = pointwise_blocks(n, h * w, pointwise_slots(_build.device_index(frames.device), gain is not None))
     out = torch.empty_like(frames)
     mat9 = mat9.contiguous()
     gain = None if gain is None else gain.contiguous()
-    _launch("av_pointwise_u8", frames, frames.data_ptr(), out.data_ptr(), scale.data_ptr(),
-            mat9.data_ptr(), None if gain is None else gain.data_ptr(),
-            encode_table(frames.device).data_ptr(), blocks, n, h, w)
-    LAUNCHES["pointwise_u8"] += 1
+    LIB.launch("av_pointwise_u8", "pointwise_u8", frames.device, frames.data_ptr(), out.data_ptr(), scale.data_ptr(),
+               mat9.data_ptr(), None if gain is None else gain.data_ptr(),
+               encode_table(frames.device).data_ptr(), blocks, n, h, w)
     return out.reshape(img.shape)
 
 

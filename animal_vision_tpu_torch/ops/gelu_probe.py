@@ -6,8 +6,8 @@ applies one function ``reps`` times in a row to every element of a
 GELU polynomial, a degree-7 one, a 3x3-like multiply-add stencil over the
 rows wrapping inside 512-row slabs, one multiply-add, and the exact
 ``erff`` GELU of the port's kernels). ``run`` launches the kernel of
-``csrc/gelu_probe.cu`` on a CUDA tensor and counts the launch in
-``LAUNCHES``; on a CPU tensor it takes the case's plain version. The plain
+``csrc/gelu_probe.cu`` on a CUDA tensor and books the launch under the
+case's name; on a CPU tensor it takes the case's plain version. The plain
 versions repeat the kernel's arithmetic op for op and round each
 operation once, as the kernel does (``fmaf``, ``__hfma2``, ``__hmul2``): a
 float32 multiply-add is formed in float64 and rounded to float32; a bf16
@@ -42,7 +42,6 @@ GELU_COEF = (
     4.284632193e-03, -2.526916729e-03, 3.580725317e-03, -1.676730979e-03,
 )
 MADD3 = (1.1, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2)
-LAUNCHES = {name: 0 for name, _ in CASES}
 #: the kernel against its plain version: float32 within F32_TOL of
 #: min(1, max |y|) (so at most 1e-5 absolute, and relative where repeated
 #: GELUs shrink every value toward 0), madd3x3 of max |y| (its values grow
@@ -51,19 +50,9 @@ LAUNCHES = {name: 0 for name, _ in CASES}
 F32_TOL = 1e-5
 BF16_REL_TOL = 2.0 ** -6
 
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("gelu_probe")
-    if lib.av_gelu_probe.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.av_gelu_probe.argtypes = [p, p, i, i, i, i, i, p]
-        lib.av_gelu_probe.restype = ctypes.c_int
-    return lib
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+LIB = _build.Library("gelu_probe", {"av_gelu_probe": [_P, _P, _I, _I, _I, _I, _I, _P]})
 
 
 def to_bf16_once(s: torch.Tensor) -> torch.Tensor:
@@ -204,9 +193,7 @@ def run(case: str, x: torch.Tensor, reps: int | None = None) -> torch.Tensor:
     if not x.is_cuda:
         return run_plain(case, x, reps)
     y = torch.empty_like(x)
-    lib = _lib()
     which = [name for name, _ in CASES].index(case)
-    _build.launch(lib, "av_gelu_probe", x.device, x.data_ptr(), y.data_ptr(), which, int(x.dtype == torch.bfloat16),
-                  x.shape[0], x.shape[1], REPS[case] if reps is None else reps)
-    LAUNCHES[case] += 1
+    LIB.launch("av_gelu_probe", case, x.device, x.data_ptr(), y.data_ptr(), which, int(x.dtype == torch.bfloat16),
+               x.shape[0], x.shape[1], REPS[case] if reps is None else reps)
     return y

@@ -66,7 +66,7 @@ def max_pixels() -> int | None:
 def is_oom(e: BaseException) -> bool:
     """Whether ``e`` says the device ran out of memory: PyTorch's allocator
     error, or a runtime error from cuBLAS, cuDNN or a kernel launch
-    (``ops/_build.launch``) that says so."""
+    (``ops/_build.Library.launch``) that says so."""
     if isinstance(e, torch.OutOfMemoryError):
         return True
     return isinstance(e, RuntimeError) and any(t in str(e) for t in _OOM_TEXT)

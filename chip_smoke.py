@@ -426,16 +426,10 @@ def psnr_db(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def reset_counters() -> None:
-    from animal_vision_tpu_torch.ops import fused_blur as B
-    from animal_vision_tpu_torch.ops import fused_msab as M
-    from animal_vision_tpu_torch.ops import fused_mst as T
-    from animal_vision_tpu_torch.ops import fused_nonuv as F
+    from animal_vision_tpu_torch.ops import _build
     from animal_vision_tpu_torch.species import base
 
-    F.reset_launches()
-    B.reset_launches()
-    M.reset_launches()
-    T.reset_launches()
+    _build.reset_launches()
     base.reset_rungs()
 
 
@@ -451,12 +445,9 @@ def no_rungs(phase: str) -> None:
 
 
 def counters() -> dict:
-    from animal_vision_tpu_torch.ops import fused_blur as B
-    from animal_vision_tpu_torch.ops import fused_msab as M
-    from animal_vision_tpu_torch.ops import fused_mst as T
-    from animal_vision_tpu_torch.ops import fused_nonuv as F
+    from animal_vision_tpu_torch.ops import _build
 
-    return {**F.LAUNCHES, **B.LAUNCHES, **M.LAUNCHES, **T.LAUNCHES}
+    return dict(_build.LAUNCHES)
 
 
 @contextlib.contextmanager
@@ -730,7 +721,7 @@ def kernels_phase(device: torch.device, shapes=SHAPES, kernel_reps=KERNEL_REPS,
             err = max(errs)
             if err > TOL_LSB:
                 raise AssertionError(f"{case['kernel']} {case['name']} {h}x{w}: {err} LSB from its plain version")
-            before = F.LAUNCHES[case["kernel"]]
+            before = counters()[case["kernel"]]
             it = itertools.count()
 
             def kernel_call(case=case, it=it):
@@ -738,7 +729,7 @@ def kernels_phase(device: torch.device, shapes=SHAPES, kernel_reps=KERNEL_REPS,
                 case["run"](case["ins"][i], case["scales"][i])
 
             ms = time_ms(kernel_call, kernel_reps, device)
-            if device.type == "cuda" and F.LAUNCHES[case["kernel"]] == before:
+            if device.type == "cuda" and counters()[case["kernel"]] == before:
                 raise AssertionError(f"{case['kernel']} did not launch")
             plain_ms = time_ms(lambda case=case: case["plain"](case["ins"][0], case["scales"][0]),
                                plain_reps, device, warmup=1)
@@ -781,10 +772,10 @@ def blur_phase(device: torch.device, shapes=SHAPES, ksizes=BLUR_KSIZES, channels
                 err = max((B.blur_uv(x, taps) - B.blur_uv_plain(x, taps)).abs().max().item() for x in ins)
                 if not err <= BLUR_TOL:
                     raise AssertionError(f"blur_uv {h}x{w} C={c} k={k}: {err} from its plain version")
-                before = B.LAUNCHES["blur_uv"]
+                before = counters()["blur_uv"]
                 it = itertools.count()
                 ms = time_ms(lambda: B.blur_uv(ins[next(it) % 3], taps), reps, device)
-                if device.type == "cuda" and B.LAUNCHES["blur_uv"] == before:
+                if device.type == "cuda" and counters()["blur_uv"] == before:
                     raise AssertionError("blur_uv did not launch")
                 plain_ms = time_ms(lambda: B.blur_uv_plain(ins[0], taps), plain_reps, device, warmup=1)
                 r = k // 2
@@ -995,8 +986,6 @@ def mst_kernels_phase(device: torch.device, points=MST_POINTS, reps=MST_KERNEL_R
     """Each MST++ kernel, then MST-L's masked pos kernel, against its plain
     version on the same inputs; its time, the plain version's, its bound
     and, for the convolution, the library call's."""
-    from animal_vision_tpu_torch.ops import fused_msab as M
-
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     rows = []
     groups = [(point, hw, n, mst_kernel_cases) for point, (hw, n) in points.items()]
@@ -1012,9 +1001,9 @@ def mst_kernels_phase(device: torch.device, points=MST_POINTS, reps=MST_KERNEL_R
                 raise AssertionError(f"{kernel} {case['case']} at {point}: error {err} from its plain version "
                                      f"(tolerance {tol})")
             counter = case.get("counter", kernel)
-            before = M.LAUNCHES[counter]
+            before = counters()[counter]
             ms = time_ms(case["run"], reps, device)
-            if device.type == "cuda" and M.LAUNCHES[counter] == before:
+            if device.type == "cuda" and counters()[counter] == before:
                 raise AssertionError(f"{kernel} did not launch")
             plain_ms = time_ms(case["plain"], plain_reps, device, warmup=1)
             library_ms = library_err = None
@@ -1053,6 +1042,7 @@ def ffn_phase(device: torch.device, cases=FFN_CASES, reps=MST_KERNEL_REPS, plain
     multiply-add is 2 operations; per pixel the two 1x1 maps 16 C^2, the
     depthwise 72 C, GELU 1 per hidden value twice (8 C), LayerNorm about 8
     per channel, the residual 1."""
+    from animal_vision_tpu_torch.ops import _build
     from animal_vision_tpu_torch.ops import fused_mst as T
 
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
@@ -1071,9 +1061,9 @@ def ffn_phase(device: torch.device, cases=FFN_CASES, reps=MST_KERNEL_REPS, plain
         if not err <= FFN_TOL:
             raise AssertionError(f"ffn C={c} {h}x{w} x{n}: {err} from its plain version (tolerance {FFN_TOL})")
         del got, want
-        before = T.LAUNCHES["ffn"]
+        before = counters()["ffn"]
         ms = time_ms(lambda: T.ffn(x, *ws), reps, device)
-        if device.type == "cuda" and T.LAUNCHES["ffn"] == before:
+        if device.type == "cuda" and counters()["ffn"] == before:
             raise AssertionError("ffn_kernel did not launch")
         plain_ms = time_ms(lambda: T.ffn_plain(x, *ws), plain_reps, device, warmup=1)
         px = n * h * w
@@ -1085,7 +1075,8 @@ def ffn_phase(device: torch.device, cases=FFN_CASES, reps=MST_KERNEL_REPS, plain
             kernel="ffn_kernel", case=f"C={c}", point=point, h=h, w=w, frames=n, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=None, bound_ms=bound_s * 1e3, bytes=nbytes, ops=ops,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
-            tile=list(T.tile_for(c, T.smem_limit(torch.cuda.current_device()))) if device.type == "cuda" else None,
+            tile=list(T.tile_for(c, _build.two_block_smem_limit(torch.cuda.current_device())))
+            if device.type == "cuda" else None,
             blocks_per_sm=T.blocks_per_sm(c, torch.cuda.current_device()) if device.type == "cuda" else None,
             **tc_bound(nbytes, prod_ops, other_ops),
         )
@@ -1099,16 +1090,13 @@ def ffn_phase(device: torch.device, cases=FFN_CASES, reps=MST_KERNEL_REPS, plain
 
 
 def probe_lib():
-    """``csrc/nonuv_probe.cu``'s library, with its entry point typed."""
+    """``csrc/nonuv_probe.cu``'s library and its one entry point."""
     import ctypes
 
     from animal_vision_tpu_torch.ops import _build
 
-    lib = _build.load("nonuv_probe")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.av_nonuv_probe.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.av_nonuv_probe.restype = ctypes.c_int
-    return lib
+    return _build.Library("nonuv_probe", {"av_nonuv_probe": [p, p, p, p, p, i, i, i, i, i, i, p]})
 
 
 def ablation_phase(device: torch.device, hw=MAIN_HW, frames=PROBE_FRAMES, variants=PROBE_VARIANTS,
@@ -1119,7 +1107,6 @@ def ablation_phase(device: torch.device, hw=MAIN_HW, frames=PROBE_FRAMES, varian
     variants must give the powf variants' bytes exactly. Raises if a probe
     kernel does not build or launch."""
     from animal_vision_tpu_torch.core import color
-    from animal_vision_tpu_torch.ops import _build
     from animal_vision_tpu_torch.ops import fused_nonuv as F
     from animal_vision_tpu_torch.species.nonuv import NONUV_SPECS
 
@@ -1135,8 +1122,8 @@ def ablation_phase(device: torch.device, hw=MAIN_HW, frames=PROBE_FRAMES, varian
         out = torch.empty_like(x)
 
         def run(out=out, curve=curve, mix=mix, k=k):
-            _build.launch(lib, "av_nonuv_probe", device, x.data_ptr(), out.data_ptr(), scale.data_ptr(),
-                          thr.data_ptr(), mat9.data_ptr(), curve, mix, k, frames, *hw)
+            lib.launch("av_nonuv_probe", None, device, x.data_ptr(), out.data_ptr(), scale.data_ptr(),
+                       thr.data_ptr(), mat9.data_ptr(), curve, mix, k, frames, *hw)
 
         run()
         sync(device)
@@ -1186,6 +1173,7 @@ def gelu_probe_phase(device: torch.device, reps=GELU_PROBE_REPS, n_points=GELU_E
     bf16 rate for the other bf16 cases); ``single_madd``'s steady rate over
     ``GELU_RATE_REPS`` applications; the SASS opcodes of every instance; and
     max |gelu_deg11 - gelu_erf| over the [-8, 8] points."""
+    from animal_vision_tpu_torch.ops import _build
     from animal_vision_tpu_torch.ops import gelu_probe as GP
 
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
@@ -1195,10 +1183,10 @@ def gelu_probe_phase(device: torch.device, reps=GELU_PROBE_REPS, n_points=GELU_E
     inputs = {dt: x32.to(dt) for dt in tags}
     outs, launches = {}, {}
     for dt, x in inputs.items():
-        GP.reset_launches()
+        _build.reset_launches()
         outs.update({(case, dt): GP.run(case, x) for case, _ in GP.CASES})
         sync(device)
-        launches[dt] = dict(GP.LAUNCHES)
+        launches[dt] = counters()
     checks = {}
     for (case, dt), full in outs.items():
         rows_checked = []
@@ -1990,7 +1978,6 @@ def library_phase(device: torch.device, hw=LIBRARY_HW, batch=BATCH // 2, tol=LIB
     channel); ``unsharp_mask`` and ``dog_bandpass`` launch ``blur_uv``
     (1 and 2 launches), counted around their calls."""
     from animal_vision_tpu_torch.core import blur, color, effects, geometry
-    from animal_vision_tpu_torch.ops import fused_blur as B
     from animal_vision_tpu_torch.spectral import bands, classic, mappers
 
     h, w = hw
@@ -2023,10 +2010,10 @@ def library_phase(device: torch.device, hw=LIBRARY_HW, batch=BATCH // 2, tol=LIB
     rows = {}
     with plain_forbidden_on_cuda():
         for name, (fn, inp) in fns.items():
-            before = B.LAUNCHES["blur_uv"]
+            before = counters()["blur_uv"]
             got = fn(inp.to(device))
             sync(device)
-            launches = B.LAUNCHES["blur_uv"] - before
+            launches = counters()["blur_uv"] - before
             want = fn(inp)
             err = (got.cpu() - want).abs().max().item()
             ms = time_ms(lambda fn=fn, t=inp.to(device): fn(t), 5, device)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from animal_vision_tpu.ops.fused_msab import _GELU_COEF, _gelu
+from animal_vision_tpu_torch.ops import _build
 from animal_vision_tpu_torch.ops import gelu_probe as P
 
 
@@ -114,11 +115,11 @@ def test_bf16_plain_follows_float32(case):
 
 
 def test_run_on_the_cpu_takes_the_plain_version():
-    P.reset_launches()
+    _build.reset_launches()
     x = torch.from_numpy(_x((512, 16), seed=5))
     for case, _ in P.CASES:
         assert torch.equal(P.run(case, x, 3), P.run_plain(case, x, 3))
-    assert set(P.LAUNCHES.values()) == {0}
+    assert set(_build.LAUNCHES.values()) == {0}
     with pytest.raises(ValueError, match="madd3x3 needs"):
         P.run("madd3x3", torch.zeros(100, 16))
     with pytest.raises(ValueError, match="unknown probe case"):

@@ -18,6 +18,7 @@ from animal_vision_tpu_torch.core import blur, color
 from animal_vision_tpu_torch.models import zoo
 from animal_vision_tpu_torch.models.mst_plus_plus import load_shipped
 from animal_vision_tpu_torch.models.providers import attach_model, attach_mst, make_mst_hsi_provider
+from animal_vision_tpu_torch.ops import _build
 from animal_vision_tpu_torch.ops import fused_blur as B
 from animal_vision_tpu_torch.ops import fused_msab as M
 from animal_vision_tpu_torch.ops import fused_mst as T
@@ -32,6 +33,8 @@ from animal_vision_tpu_torch.species.uv.mantis_shrimp import MantisShrimp
 pytestmark = pytest.mark.gpu
 
 SHAPES = [(2, 64, 96), (1, 37, 53), (3, 5, 3), (1, 1, 1)]
+#: The launch keys of ``fused_msab``'s MST++ kernels.
+MSAB_KEYS = ("conv_kernel", "attn_stats_kernel", "msab_apply_kernel", "up_fuse_kernel", "msab_masked_kernel")
 
 
 @pytest.fixture
@@ -69,6 +72,10 @@ def _frames(shape, device, seed=0):
     return torch.from_numpy(x).to(device)
 
 
+def _launches(*keys) -> dict:
+    return {k: _build.LAUNCHES[k] for k in keys}
+
+
 def _table(a, device):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
@@ -78,10 +85,10 @@ def _lsb(a, b):
 
 
 def _kernel_vs_plain(run, plain, x, scale, kernel):
-    before = F.LAUNCHES[kernel]
+    before = _build.LAUNCHES[kernel]
     got = run(x, scale)
     torch.cuda.synchronize()
-    assert F.LAUNCHES[kernel] == before + 1
+    assert _build.LAUNCHES[kernel] == before + 1
     want = plain(x.cpu(), scale.cpu())
     assert got.dtype == torch.uint8 and got.shape == x.shape
     assert _lsb(got.cpu(), want) <= 1
@@ -102,10 +109,10 @@ def test_iso_kernel_float_input(cuda, no_plain_on_cuda, shape):
     params = _table(F.iso_params(Cat._merge_matrix(), Cat.BLUR_SIGMA), cuda)
     x = (_frames(shape, cuda).float() / 255.0).contiguous()
     ones = torch.ones(shape[0], device=cuda)
-    before = F.LAUNCHES["iso_u8"]
+    before = _build.LAUNCHES["iso_u8"]
     got = F.iso_u8(x, ones, params)
     torch.cuda.synchronize()
-    assert F.LAUNCHES["iso_u8"] == before + 1
+    assert _build.LAUNCHES["iso_u8"] == before + 1
     want = no_plain_on_cuda["iso_u8_plain"](x.cpu(), ones.cpu(), params.cpu())
     assert _lsb(got.cpu(), want) <= 1
 
@@ -332,10 +339,10 @@ def test_blur_uv_kernel(cuda, no_plain_on_cuda, shape, channels, ksize):
     sigma = (ksize - 1) / 6  # uv_ksize(sigma) == ksize
     assert blur.uv_ksize(sigma) == ksize
     taps = blur.uv_taps(sigma, "cpu")
-    before = B.LAUNCHES["blur_uv"]
+    before = _build.LAUNCHES["blur_uv"]
     got = B.blur_uv(x.to(cuda), taps.to(cuda))
     torch.cuda.synchronize()
-    assert B.LAUNCHES["blur_uv"] == before + 1
+    assert _build.LAUNCHES["blur_uv"] == before + 1
     want = no_plain_on_cuda["blur_uv_plain"](x, taps)
     assert got.shape == x.shape and got.dtype == torch.float32
     assert (got.cpu() - want).abs().max().item() <= 1e-5
@@ -393,9 +400,9 @@ def test_blur_uv_raises_above_shared_memory(cuda):
 @pytest.mark.parametrize("name", PORTED_UV_NAMES)
 def test_uv_species_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, name):
     frame = _frames((1, 72, 130), "cpu", seed=6)[0].numpy()
-    before = B.LAUNCHES["blur_uv"]
+    before = _build.LAUNCHES["blur_uv"]
     base_g, out_g = get_animal(name, cuda).visualize(frame)
-    assert B.LAUNCHES["blur_uv"] > before
+    assert _build.LAUNCHES["blur_uv"] > before
     base_c, out_c = get_animal(name, "cpu").visualize(frame)
     assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0
     assert _lsb(torch.from_numpy(base_g), torch.from_numpy(base_c)) <= 1
@@ -425,10 +432,10 @@ def _to(blk, device):
 
 
 def _counted(kernel, fn, *args):
-    before = M.LAUNCHES[kernel]
+    before = _build.LAUNCHES[kernel]
     out = fn(*args)
     torch.cuda.synchronize()
-    assert M.LAUNCHES[kernel] == before + 1
+    assert _build.LAUNCHES[kernel] == before + 1
     return out
 
 
@@ -554,9 +561,9 @@ def test_msab_pos_kernel(cuda, no_plain_on_cuda, shape, c):
 def test_msab_apply_kernel(cuda, no_plain_on_cuda, shape, c):
     """Pass B: the pos kernel, then the FFN kernel."""
     x, m, blk = _msab_operands(shape, c)
-    before = T.LAUNCHES["ffn"]
+    before = _build.LAUNCHES["ffn"]
     got = _counted("msab_apply_kernel", M.msab_apply, x.to(cuda), m.to(cuda), _to(blk, cuda))
-    assert T.LAUNCHES["ffn"] == before + 1
+    assert _build.LAUNCHES["ffn"] == before + 1
     want = no_plain_on_cuda["msab_apply_plain"](x, m, blk)
     assert (got.cpu() - want).abs().max().item() <= 5e-4
 
@@ -586,9 +593,9 @@ def test_msab_pos_masked_kernel(cuda, no_plain_on_cuda, shape, c):
     as ``msab_masked_kernel`` and not as the unmasked launch."""
     x, m, blk = _msab_operands(shape, c)
     gate = _gate(np.random.default_rng(c + 3), shape, c)
-    before = M.LAUNCHES["msab_apply_kernel"]
+    before = _build.LAUNCHES["msab_apply_kernel"]
     got = _counted("msab_masked_kernel", M.msab_pos, x.to(cuda), m.to(cuda), _to(blk, cuda), gate.to(cuda))
-    assert M.LAUNCHES["msab_apply_kernel"] == before
+    assert _build.LAUNCHES["msab_apply_kernel"] == before
     want = no_plain_on_cuda["msab_pos_plain"](x, m, blk, gate)
     assert got.shape == want.shape
     assert (got.cpu() - want).abs().max().item() <= 1e-4
@@ -612,7 +619,7 @@ def test_msab_pos_tile_raises_above_shared_memory(cuda):
     at C = 62 and of 4x8 at C = 124, and the library's shared memory per
     block is the wrappers' count; where two do not fit, the wrapper raises
     and names C and the tile."""
-    limit = T.smem_limit(torch.cuda.current_device())
+    limit = _build.two_block_smem_limit(torch.cuda.current_device())
     assert [M.pos_tile_for(c, limit) for c in M.MSAB_CHANNELS] == [(8, 16), (8, 8), (4, 8)]
     for c in M.MSAB_CHANNELS:
         assert M.kernel_smem_bytes("pos", c) == M.pos_smem_bytes(c, M.POS_TILES[c])
@@ -664,7 +671,7 @@ def test_up_fuse_tile_raises_above_shared_memory(cuda):
     4x8 at C = 124, and the library's shared memory per block is the
     wrapper's count; where two do not fit, the wrapper raises and names C
     and the tile."""
-    limit = T.smem_limit(torch.cuda.current_device())
+    limit = _build.two_block_smem_limit(torch.cuda.current_device())
     assert [M.up_tile_for(c, limit) for c in (62, 124)] == [(8, 8), (4, 8)]
     for c in (62, 124):
         assert M.kernel_smem_bytes("up_fuse", c) == M.up_smem_bytes(c, M.UP_TILES[c])
@@ -679,14 +686,13 @@ def test_mst_on_card_vs_cpu(cuda, no_plain_on_cuda):
     gpu, cpu = load_shipped(cuda), load_shipped("cpu")
     for shape in [(1, 64, 96, 3), (2, 37, 53, 3)]:
         x = torch.from_numpy(np.random.default_rng(7).random(shape, dtype=np.float32))
-        M.reset_launches()
-        T.reset_launches()
+        _build.reset_launches()
         with torch.no_grad():
             got = gpu(x.to(cuda))
             torch.cuda.synchronize()
-            assert M.LAUNCHES == {"conv_kernel": 14, "attn_stats_kernel": 15, "msab_apply_kernel": 15,
-                                  "up_fuse_kernel": 6, "msab_masked_kernel": 0}
-            assert T.LAUNCHES == {"ffn": 15}
+            assert _launches(*MSAB_KEYS) == {"conv_kernel": 14, "attn_stats_kernel": 15, "msab_apply_kernel": 15,
+                                             "up_fuse_kernel": 6, "msab_masked_kernel": 0}
+            assert _build.LAUNCHES["ffn"] == 15
             want = cpu(x)
         assert got.shape == want.shape == (*shape[:3], 31)
         assert (got.cpu() - want).abs().max().item() < 5e-4
@@ -695,9 +701,9 @@ def test_mst_on_card_vs_cpu(cuda, no_plain_on_cuda):
 @pytest.mark.parametrize("cls", [Kestrel, Goldfish])
 def test_uv_species_with_mst_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, cls):
     frame = _frames((1, 72, 130), "cpu", seed=8)[0].numpy()
-    before = M.LAUNCHES["msab_apply_kernel"]
+    before = _build.LAUNCHES["msab_apply_kernel"]
     _, out_g = attach_mst(cls(cuda), load_shipped(cuda)).visualize(frame)
-    assert M.LAUNCHES["msab_apply_kernel"] == before + 15
+    assert _build.LAUNCHES["msab_apply_kernel"] == before + 15
     _, out_c = attach_mst(cls("cpu"), load_shipped("cpu")).visualize(frame)
     assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0
 
@@ -722,10 +728,10 @@ def test_ffn_kernel(cuda, no_plain_on_cuda, shape, c):
     """From 1x1 frames and frames narrower than one tile to C = 124 at
     4 x 68 x 120 (the 272x480 operating point's deepest level)."""
     x, ws = _ffn_operands(shape, c)
-    before = T.LAUNCHES["ffn"]
+    before = _build.LAUNCHES["ffn"]
     got = T.ffn(x.to(cuda), *(t.to(cuda) for t in ws))
     torch.cuda.synchronize()
-    assert T.LAUNCHES["ffn"] == before + 1
+    assert _build.LAUNCHES["ffn"] == before + 1
     want = no_plain_on_cuda["ffn_plain"](x, *ws)
     assert got.shape == want.shape
     assert (got.cpu() - want).abs().max().item() <= 1e-4
@@ -784,7 +790,7 @@ def test_ffn_tile_raises_above_shared_memory(cuda):
     """Two blocks of the 8x16 tile fit an SM of this card at C = 31 and 62,
     of 8x8 at C = 124; where two do not fit, the wrapper raises and names C
     and the tile."""
-    limit = T.smem_limit(torch.cuda.current_device())
+    limit = _build.two_block_smem_limit(torch.cuda.current_device())
     assert [T.tile_for(c, limit) for c in T.FFN_CHANNELS] == [(8, 16), (8, 16), (8, 8)]
     with pytest.raises(ValueError, match="C = 124 .* 8x8 tile"):
         T.tile_for(124, 48 * 1024)
@@ -797,14 +803,13 @@ def test_mst_l_on_card_vs_cpu(cuda, no_plain_on_cuda):
     gpu = zoo.model_generator("mst", device=cuda)
     cpu = zoo.model_generator("mst", device="cpu")
     x = torch.from_numpy(np.random.default_rng(9).random((1, 40, 67, 3), dtype=np.float32))
-    M.reset_launches()
-    T.reset_launches()
+    _build.reset_launches()
     with torch.no_grad():
         got = gpu(x.to(cuda))
         torch.cuda.synchronize()
-        assert T.LAUNCHES["ffn"] == 27
-        assert M.LAUNCHES == {"conv_kernel": 0, "attn_stats_kernel": 27, "msab_apply_kernel": 0, "up_fuse_kernel": 0,
-                              "msab_masked_kernel": 27}
+        assert _build.LAUNCHES["ffn"] == 27
+        assert _launches(*MSAB_KEYS) == {"conv_kernel": 0, "attn_stats_kernel": 27, "msab_apply_kernel": 0,
+                                         "up_fuse_kernel": 0, "msab_masked_kernel": 27}
         want = cpu(x)
     assert got.shape == want.shape == (1, 40, 67, 31)
     assert (got.cpu() - want).abs().max().item() <= 5e-4 * max(1.0, want.abs().max().item())
@@ -827,14 +832,13 @@ def test_mst_l_provider_replays_a_graph_per_shape(cuda, no_plain_on_cuda):
         bar = 1e-5 * max(1.0, want.abs().max().item())
         outs = []
         for _ in range(2):
-            M.reset_launches()
-            T.reset_launches()
+            _build.reset_launches()
             outs.append(provider(x))
             torch.cuda.synchronize()
             n = 27 * shape[0]
-            assert T.LAUNCHES["ffn"] == n
-            assert M.LAUNCHES == {"conv_kernel": 0, "attn_stats_kernel": n, "msab_apply_kernel": 0,
-                                  "up_fuse_kernel": 0, "msab_masked_kernel": n}
+            assert _build.LAUNCHES["ffn"] == n
+            assert _launches(*MSAB_KEYS) == {"conv_kernel": 0, "attn_stats_kernel": n, "msab_apply_kernel": 0,
+                                             "up_fuse_kernel": 0, "msab_masked_kernel": n}
             assert (outs[-1] - want).abs().max().item() <= bar
         assert torch.equal(outs[0][1:], outs[1][1:])  # replays of one graph
     module.load_state_dict({k: v * 0.5 for k, v in module.state_dict().items()})
@@ -846,9 +850,9 @@ def test_mst_l_provider_replays_a_graph_per_shape(cuda, no_plain_on_cuda):
 @pytest.mark.parametrize("cls", [Kestrel, MantisShrimp])
 def test_uv_species_with_mst_l_on_card_vs_cpu(cuda, no_plain_on_cuda, psnr_fn, cls):
     frame = _frames((1, 72, 130), "cpu", seed=10)[0].numpy()
-    before = T.LAUNCHES["ffn"]
+    before = _build.LAUNCHES["ffn"]
     _, out_g = attach_model(cls(cuda), "mst").visualize(frame)
-    assert T.LAUNCHES["ffn"] == before + 27
+    assert _build.LAUNCHES["ffn"] == before + 27
     _, out_c = attach_model(cls("cpu"), "mst").visualize(frame)
     assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0
 
@@ -866,9 +870,9 @@ def test_rat_uv_mixed_batch_on_card(cuda, no_plain_on_cuda, psnr_fn):
     host[1::2] = (host[1::2] * 0.05).astype(np.uint8)
     assert RatUV.is_night(torch.from_numpy(host)).flatten().tolist() == [False, True, False, True]
     animal = get_animal("rat_uv", cuda)
-    before = B.LAUNCHES["blur_uv"]
+    before = _build.LAUNCHES["blur_uv"]
     base_g, out_g = animal.visualize_batch(host)
-    assert B.LAUNCHES["blur_uv"] == before + 2  # the day and the night scatter blur
+    assert _build.LAUNCHES["blur_uv"] == before + 2  # the day and the night scatter blur
     base_c, out_c = get_animal("rat_uv", "cpu").visualize_batch(host)
     assert psnr_fn(out_g / 255.0, out_c / 255.0) >= 40.0
     assert _lsb(torch.from_numpy(base_g), torch.from_numpy(base_c)) <= 1
@@ -881,11 +885,11 @@ def test_unsharp_mask_and_dog_bandpass_on_card(cuda, no_plain_on_cuda, shape):
     from animal_vision_tpu_torch.core import effects
 
     x = torch.from_numpy(np.random.default_rng(12).random(shape, dtype=np.float32))
-    before = B.LAUNCHES["blur_uv"]
+    before = _build.LAUNCHES["blur_uv"]
     got = effects.unsharp_mask(x.to(cuda), 1.3, 0.7)
     band = effects.dog_bandpass(x.to(cuda), 0.8, 2.5)
     torch.cuda.synchronize()
-    assert B.LAUNCHES["blur_uv"] == before + 3
+    assert _build.LAUNCHES["blur_uv"] == before + 3
     assert (got.cpu() - effects.unsharp_mask(x, 1.3, 0.7, plain=True)).abs().max().item() <= 1e-5
     assert (band.cpu() - effects.dog_bandpass(x, 0.8, 2.5, plain=True)).abs().max().item() <= 1e-5
 
@@ -961,9 +965,9 @@ def test_gelu_probe_kernel(cuda, case, dtype):
     wide = torch.linspace(-8.0, 8.0, 1024 * 64, device=cuda).reshape(1024, 64)
     for inp in (x.to(dtype), wide.to(dtype)):
         for reps in (1, 8, GP.REPS[case]):
-            GP.reset_launches()
+            _build.reset_launches()
             got = GP.run(case, inp, reps)
-            assert GP.LAUNCHES[case] == 1 and got.dtype == dtype
+            assert _build.LAUNCHES[case] == 1 and got.dtype == dtype
             err, ratio = GP.excess(case, got, GP.run_plain(case, inp, reps))
             assert ratio <= 1, (reps, err, ratio)
 
@@ -1054,13 +1058,12 @@ def test_train_step_on_card_vs_cpu(cuda):
 
     cpu, card, cfg, batches = _train_pair(cuda)
     step = train.make_train_step("mrae")
-    M.reset_launches()
-    T.reset_launches()
+    _build.reset_launches()
     for rgb, hsi in batches:
         cpu, mc = step(cpu, rgb, hsi)
         card, mg = step(card, rgb, hsi)
         assert abs(mg["loss"].item() - mc["loss"].item()) <= 1e-4 * abs(mc["loss"].item())
-    assert set(M.LAUNCHES.values()) == {0} and T.LAUNCHES["ffn"] == 0
+    assert set(_launches(*MSAB_KEYS).values()) == {0} and _build.LAUNCHES["ffn"] == 0
     want = dict(cpu.model.named_parameters())
     diffs = torch.cat([(p.detach().cpu() - want[k].detach()).flatten() for k, p in card.model.named_parameters()])
     bound = 2 * sum(cfg.schedule(c) for c in range(len(batches)))
@@ -1082,14 +1085,13 @@ def test_kernel_forward_after_a_train_step(cuda):
     step = train.make_train_step("mrae")
     for rgb, hsi in batches:
         card, _ = step(card, rgb, hsi)
-    M.reset_launches()
-    T.reset_launches()
+    _build.reset_launches()
     with torch.no_grad():
         got = card.model(x)
         torch.cuda.synchronize()
-        assert M.LAUNCHES == {"conv_kernel": 6, "attn_stats_kernel": 5, "msab_apply_kernel": 5, "up_fuse_kernel": 2,
-                              "msab_masked_kernel": 0}
-        assert T.LAUNCHES == {"ffn": 5}
+        assert _launches(*MSAB_KEYS) == {"conv_kernel": 6, "attn_stats_kernel": 5, "msab_apply_kernel": 5,
+                                         "up_fuse_kernel": 2, "msab_masked_kernel": 0}
+        assert _build.LAUNCHES["ffn"] == 5
         want = card.model(x, plain=True)
     assert (got - want).abs().max().item() < 5e-4
     assert (got - before).abs().max().item() > 1e-3
@@ -1181,9 +1183,9 @@ def test_train_synth_on_card(cuda, tmp_path):
         step = real(loss)
 
         def run(state, rgb, hsi):
-            before = sum(M.LAUNCHES.values()) + sum(T.LAUNCHES.values())
+            before = sum(_launches(*MSAB_KEYS, "ffn").values())
             out = step(state, rgb, hsi)
-            launches.append(sum(M.LAUNCHES.values()) + sum(T.LAUNCHES.values()) - before)
+            launches.append(sum(_launches(*MSAB_KEYS, "ffn").values()) - before)
             return out
 
         return run

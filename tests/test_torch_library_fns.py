@@ -23,7 +23,7 @@ from animal_vision_tpu.core import geometry as jgeometry
 from animal_vision_tpu.spectral import bands as jbands
 from animal_vision_tpu.spectral import mappers as jmappers
 from animal_vision_tpu_torch.core import blur, color, effects, geometry
-from animal_vision_tpu_torch.ops import fused_blur
+from animal_vision_tpu_torch.ops import _build
 from animal_vision_tpu_torch.spectral import bands, mappers
 
 TOL = 1e-5
@@ -107,7 +107,7 @@ def test_tapetum_bloom_and_rod_vision(hw, img_f32):
 @pytest.mark.parametrize("hw", SHAPES)
 def test_unsharp_mask_and_dog_bandpass(hw):
     x = _rand((BATCH, *hw, 3), seed=5)
-    before = fused_blur.LAUNCHES["blur_uv"]
+    before = _build.LAUNCHES["blur_uv"]
     for sigma, amount in ((1.0, 0.3), (2.2, 1.5)):
         _per_frame(lambda t: effects.unsharp_mask(t, sigma, amount),
                    lambda j: jeffects.unsharp_mask(j, sigma, amount), x)
@@ -121,7 +121,7 @@ def test_unsharp_mask_and_dog_bandpass(hw):
                    x[..., :1], map_in=True, map_out=True)
         frame = torch.from_numpy(x[0, ..., :1])
         assert torch.equal(effects.dog_bandpass(frame, lo, hi), effects.dog_bandpass(frame, lo, hi, plain=True))
-    assert fused_blur.LAUNCHES["blur_uv"] == before  # on the CPU the wrappers take their plain versions
+    assert _build.LAUNCHES["blur_uv"] == before  # on the CPU the wrappers take their plain versions
 
 
 @pytest.mark.parametrize("hw", SHAPES)

@@ -19,6 +19,7 @@ import torch
 
 from animal_vision_tpu.models.mst_plus_plus import FeedForward
 from animal_vision_tpu.ops.fused_mst import fused_msab_ffn
+from animal_vision_tpu_torch.ops import _build
 from animal_vision_tpu_torch.ops import fused_mst as K
 
 TOL = 2e-5
@@ -76,9 +77,9 @@ def test_ffn_on_cpu_takes_the_plain_version():
     """On the CPU the wrapper is the plain version, bit for bit, and counts
     no launch."""
     args = [torch.from_numpy(a) for a in _inputs(31, (1, 5, 7))]
-    K.reset_launches()
+    _build.reset_launches()
     assert torch.equal(K.ffn(*args), K.ffn_plain(*args))
-    assert K.LAUNCHES == {"ffn": 0}
+    assert _build.LAUNCHES["ffn"] == 0
 
 
 def test_ffn_checks_its_operands():

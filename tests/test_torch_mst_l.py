@@ -21,7 +21,7 @@ from animal_vision_tpu.models.mst import convert_torch_state
 from animal_vision_tpu_torch.models import zoo
 from animal_vision_tpu_torch.models.mst import MSTModel, from_jax_params
 from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus
-from animal_vision_tpu_torch.ops import fused_mst as K
+from animal_vision_tpu_torch.ops import _build
 
 SHAPES = [(2, 24, 40, 3), (1, 21, 37, 3)]
 REL_TOL = 5e-4
@@ -82,9 +82,9 @@ def test_plain_and_kernel_paths_agree_on_the_cpu(port):
     """On the CPU the FFN wrapper takes its plain version: one chain, no
     launch counted."""
     x = torch.from_numpy(_x((1, 8, 8, 3)))
-    K.reset_launches()
+    _build.reset_launches()
     assert torch.equal(port(x), port(x, plain=True))
-    assert K.LAUNCHES == {"ffn": 0}
+    assert _build.LAUNCHES["ffn"] == 0
 
 
 def test_param_count_and_reference_layout(jax_model, port):

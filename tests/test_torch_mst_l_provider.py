@@ -25,7 +25,7 @@ from animal_vision_tpu_torch.core import color
 from animal_vision_tpu_torch.models import zoo
 from animal_vision_tpu_torch.models.mst import MSTModel
 from animal_vision_tpu_torch.models.providers import MST_LAMBDAS, attach_model, make_mst_hsi_provider
-from animal_vision_tpu_torch.ops import fused_mst as K
+from animal_vision_tpu_torch.ops import _build
 from animal_vision_tpu_torch.species.uv.kestrel import Kestrel
 from animal_vision_tpu_torch.species.uv.mantis_shrimp import MantisShrimp
 
@@ -97,10 +97,10 @@ def test_plain_transform_matches_kernel_path(img_u8):
     and no launch is counted."""
     animal = attach_model(Kestrel("cpu"), "mst")
     frame = torch.from_numpy(img_u8)
-    K.reset_launches()
+    _build.reset_launches()
     for got, want in zip(animal.transform(img_u8.shape)(frame), animal.plain_transform(img_u8.shape)(frame)):
         assert torch.equal(got, want)
-    assert K.LAUNCHES == {"ffn": 0}
+    assert _build.LAUNCHES["ffn"] == 0
 
 
 def test_attach_model_takes_either_method(tmp_path):

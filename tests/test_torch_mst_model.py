@@ -17,7 +17,7 @@ from animal_vision_tpu.models import quality
 from animal_vision_tpu.models.mst_plus_plus import MSTPlusPlus as JMSTPlusPlus
 from animal_vision_tpu.models.mst_plus_plus import export_torch_state
 from animal_vision_tpu_torch.models.mst_plus_plus import MSTPlusPlus, from_jax_params, load_shipped
-from animal_vision_tpu_torch.ops import fused_msab as M
+from animal_vision_tpu_torch.ops import _build
 
 SHAPES = [(1, 24, 40, 3), (2, 21, 37, 3)]
 TOL = 5e-4
@@ -98,9 +98,9 @@ def test_plain_and_kernel_paths_agree_on_the_cpu():
     one chain, and no kernel is counted."""
     model = load_shipped("cpu")
     x = torch.from_numpy(np.random.default_rng(8).random((1, 8, 8, 3), dtype=np.float32))
-    M.reset_launches()
+    _build.reset_launches()
     assert torch.equal(model(x), model(x, plain=True))
-    assert set(M.LAUNCHES.values()) == {0}
+    assert set(_build.LAUNCHES.values()) == {0}
 
 
 def test_param_count_and_names():

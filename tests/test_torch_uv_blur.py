@@ -16,6 +16,7 @@ import torch
 from animal_vision_tpu.core import blur as jblur
 from animal_vision_tpu.ops.fused_blur import fused_gaussian_blur
 from animal_vision_tpu_torch.core import blur as tblur
+from animal_vision_tpu_torch.ops import _build
 from animal_vision_tpu_torch.ops import fused_blur as F
 
 TOL = 1e-5
@@ -67,9 +68,9 @@ def test_batch_equals_frames(channels):
 def test_cpu_wrapper_takes_the_plain_version():
     x = torch.from_numpy(_data((2, 9, 11, 3)))
     taps = tblur.uv_taps(0.8, "cpu")
-    before = F.LAUNCHES["blur_uv"]
+    before = _build.LAUNCHES["blur_uv"]
     assert torch.equal(F.blur_uv(x, taps), F.blur_uv_plain(x, taps))
-    assert F.LAUNCHES["blur_uv"] == before  # no kernel launch on the CPU
+    assert _build.LAUNCHES["blur_uv"] == before  # no kernel launch on the CPU
 
 
 def test_sigma_zero_is_identity():

@@ -181,18 +181,16 @@ def train_checks(device, runs: list, rgb: np.ndarray, hsi: np.ndarray, steps: in
 def card_band_check(device, x: np.ndarray) -> dict:
     """sp 2 band forward with the kernels; the launch counts of this rank
     around it."""
-    from animal_vision_tpu_torch.ops import fused_msab as M
-    from animal_vision_tpu_torch.ops import fused_mst as T
+    from animal_vision_tpu_torch.ops import _build
 
     no_jax()
     torch.backends.cuda.matmul.allow_tf32 = False
     model = load_shipped(device)
     run = sharded_inference_fn(make_mesh(sp=2), model)
     xt = _t(x, device)
-    M.reset_launches()
-    T.reset_launches()
+    _build.reset_launches()
     got = run(xt)
-    return {"out": got.cpu().numpy(), "launches": {**M.LAUNCHES, **T.LAUNCHES}, "backend": dist.get_backend(),
+    return {"out": got.cpu().numpy(), "launches": dict(_build.LAUNCHES), "backend": dist.get_backend(),
             "device": str(device)}
 
 
